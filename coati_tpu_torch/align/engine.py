@@ -1,0 +1,203 @@
+"""Batch alignment engine: length bucketing and the fused fill + walk step.
+
+Counterpart of coati_tpu/align/engine.py. Pairs are bucketed by padded
+shape and chunked by cell count; each chunk runs the Viterbi fill and the
+traceback walk back to back on one stream, the backpointer stack never
+leaves the device, and only the op codes and scores are copied to the host,
+where the aligned strings are built. Every chunk is enqueued before the
+first result is read, so the device works while the host pads the next
+chunk and builds strings.
+"""
+
+from __future__ import annotations
+
+import collections
+import dataclasses
+
+import numpy as np
+import torch
+
+from coati_tpu_torch.device import resolve_device
+from coati_tpu_torch.kernels import traceback_walk as _walk
+from coati_tpu_torch.kernels import wavefront_fill as _fill
+from coati_tpu_torch.params import params_from_numpy
+
+# descendants needing more slots than this belong to the segmented long-pair
+# path of the JAX package (coati_tpu/align/longseq.py), not yet ported
+LONG_PAIR_SLOTS = 16512
+
+
+@dataclasses.dataclass
+class AlignResult:
+    seq0: str
+    seq1: str
+    score: float
+
+
+def _round_up(x: int, q: int) -> int:
+    return ((x + q - 1) // q) * q
+
+
+def ops_to_strings(ops_fwd, score, a_strs, b_strs, k):
+    """Aligned strings from forward-ordered op codes.
+
+    ops_fwd: [steps, B] int8 with -1 padding (leading, since the walk ran
+    backward and was reversed)."""
+    results = []
+    for p in range(ops_fwd.shape[1]):
+        ops = ops_fwd[:, p]
+        ops = ops[ops >= 0]
+        if k > 1:
+            ops = np.repeat(ops, np.where(ops == 0, 1, k))
+        a_arr = np.frombuffer(a_strs[p].encode("ascii"), dtype=np.uint8)
+        b_arr = np.frombuffer(b_strs[p].encode("ascii"), dtype=np.uint8)
+        consume_a = ops != 2
+        consume_b = ops != 1
+        idx_a = np.cumsum(consume_a) - 1
+        idx_b = np.cumsum(consume_b) - 1
+        dash = np.uint8(ord("-"))
+        s0 = np.where(consume_a, a_arr[np.maximum(idx_a, 0)], dash)
+        s1 = np.where(consume_b, b_arr[np.maximum(idx_b, 0)], dash)
+        results.append(AlignResult(
+            s0.astype(np.uint8).tobytes().decode("ascii"),
+            s1.astype(np.uint8).tobytes().decode("ascii"),
+            float(score[p]),
+        ))
+    return results
+
+
+def _pad_rows(seqs, N, dtype=np.int32):
+    """Stack ragged int sequences into a zero-padded [B, N] array."""
+    B = len(seqs)
+    lens = np.fromiter((len(s) for s in seqs), np.int32, count=B)
+    out = np.zeros((B, N), dtype=dtype)
+    if B:
+        flat = np.concatenate([np.asarray(s).ravel() for s in seqs])
+        out[np.arange(N, dtype=np.int32)[None, :] < lens[:, None]] = flat
+    return out, lens
+
+
+def _pad_batch(enc_as, enc_bs, quantum):
+    na = max(len(a) for a in enc_as)
+    nb = max(len(b) for b in enc_bs)
+    NA = max(_round_up(na, quantum), quantum)
+    NB = max(_round_up(nb, quantum), quantum)
+    aseq, lens_a = _pad_rows(enc_as, NA)
+    bseq, lens_b = _pad_rows(enc_bs, NB)
+    return aseq, bseq, lens_a, lens_b
+
+
+def fused_align_ops(aseq, bseq, lens_a, lens_b, table, gap_consts, *, k,
+                    max_steps):
+    """Viterbi fill then traceback walk on the current stream.
+
+    Returns (ops [max_steps, B] int8 walking backward, score [B] f32) on the
+    inputs' device. The bp stack is released when this returns; the
+    caching allocator reuses it in stream order, after the walk."""
+    corners, bp = _fill.wavefront_fill(aseq, bseq, lens_a, lens_b, table,
+                                       gap_consts, k=k)
+    return _walk.traceback_walk(bp, corners, lens_a, lens_b, k=k,
+                                max_steps=max_steps)
+
+
+def _upload(x: np.ndarray, dev: torch.device) -> torch.Tensor:
+    t = torch.from_numpy(x)
+    if dev.type == "cuda":
+        return t.pin_memory().to(dev, non_blocking=True)
+    return t
+
+
+def _download(*tensors):
+    """Start the device->host copies; returns (host tensors, event that
+    completes after the last copy, or None on the CPU)."""
+    if tensors[0].device.type != "cuda":
+        return tensors, None
+    hosts = []
+    for t in tensors:
+        host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        host.copy_(t, non_blocking=True)
+        hosts.append(host)
+    ev = torch.cuda.Event()
+    ev.record(torch.cuda.current_stream(tensors[0].device))
+    return hosts, ev
+
+
+def viterbi_align_batch(
+    enc_as,
+    enc_bs,
+    a_strs,
+    b_strs,
+    table,
+    gap,
+    quantum: int = 96,
+    max_batch_cells: int = 1 << 30,
+    table_idx=None,
+    device="cuda",
+) -> list[AlignResult]:
+    """Align many pairs: bucket by padded shape, run the fused fill + walk
+    per chunk, build strings on the host. Results keep input order.
+
+    table_idx: optional per-pair index into a stacked table [G, 183, 15],
+    folded into the ancestor encoding (enc_a + 183*idx against the
+    flattened [G*183, 15] table)."""
+    dev = resolve_device(device)
+    k = int(gap.len)
+    table32 = np.asarray(table, dtype=np.float32)
+    if table_idx is not None:
+        if table32.ndim != 3:
+            raise ValueError("table_idx requires a stacked [G, rows, 15] table")
+        nrows = table32.shape[1]
+        enc_as = [
+            np.asarray(a, dtype=np.int32) + np.int32(nrows * int(table_idx[i]))
+            for i, a in enumerate(enc_as)
+        ]
+    params = params_from_numpy(table32, gap, dev)
+    n_rows = params.table.shape[0]
+
+    buckets: dict[tuple[int, int], list[int]] = collections.defaultdict(list)
+    for idx, (a, b) in enumerate(zip(enc_as, enc_bs)):
+        if len(b) + k > LONG_PAIR_SLOTS:
+            raise NotImplementedError(
+                f"pair {idx}: descendant of {len(b)} nt needs the long-pair "
+                f"path (> {LONG_PAIR_SLOTS} slots), not yet ported to "
+                "coati_tpu_torch")
+        qa = max(_round_up(len(a), quantum), quantum)
+        qb = max(_round_up(len(b), quantum), quantum)
+        buckets[(qa, qb)].append(idx)
+
+    # phase 1: enqueue every chunk; phase 2: read results in launch order
+    inflight = []
+    for (qa, qb), idxs in buckets.items():
+        max_b = max(1, max_batch_cells // ((qa + k) * (qb + k)))
+        for s in range(0, len(idxs), max_b):
+            chunk = idxs[s : s + max_b]
+            aseq, bseq, la, lb = _pad_batch(
+                [enc_as[i] for i in chunk], [enc_bs[i] for i in chunk], quantum
+            )
+            if aseq.min() < 0 or aseq.max() >= n_rows or bseq.min() < 0 or bseq.max() > 15:
+                raise ValueError("sequence codes out of range for the table")
+            ops, score = fused_align_ops(
+                *(_upload(x, dev) for x in (aseq, bseq, la, lb)),
+                params.table, params.gap_consts, k=k,
+                max_steps=max(1, int(np.max(la + lb))),
+            )
+            inflight.append((chunk, _download(ops, score)))
+
+    results: list[AlignResult | None] = [None] * len(enc_as)
+    for chunk, ((ops, score), ev) in inflight:
+        if ev is not None:
+            ev.synchronize()
+        out = ops_to_strings(
+            ops.numpy()[::-1], score.numpy(),
+            [a_strs[i] for i in chunk], [b_strs[i] for i in chunk], k,
+        )
+        for i, r in zip(chunk, out):
+            results[i] = r
+    return results  # type: ignore[return-value]
+
+
+def viterbi_align_single(enc_a, enc_b, a_str, b_str, table, gap,
+                         device="cuda") -> tuple:
+    r = viterbi_align_batch([enc_a], [enc_b], [a_str], [b_str], table, gap,
+                            device=device)[0]
+    return r.seq0, r.seq1, r.score

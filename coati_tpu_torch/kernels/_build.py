@@ -1,0 +1,114 @@
+"""Build the port's CUDA kernels with nvcc at first use; load them with ctypes.
+
+Every `csrc/*.cu` file is compiled into one shared library with a plain C
+interface (no PyTorch headers, so a build takes seconds). In a checkout of
+the repository the library goes to `build/coati_tpu_torch/` at its root; in
+an installed copy, or where that root is not writable, to
+`$XDG_CACHE_HOME/coati_tpu_torch/` (default `~/.cache/coati_tpu_torch/`).
+It is named by a hash of the sources and flags, so an edited source is
+rebuilt. Pointers and the CUDA
+stream cross as `c_void_p`, sizes as `c_int`; each entry point returns
+`cudaGetLastError()` after its launch.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+
+
+def build_dir(root: Path = Path(__file__).resolve().parents[2]) -> Path:
+    """Where the library is built: build/coati_tpu_torch/ under the checkout
+    `root` when it is a writable checkout (it holds pyproject.toml), else a
+    per-user cache."""
+    if (root / "pyproject.toml").is_file() and os.access(root, os.W_OK):
+        return root / "build" / "coati_tpu_torch"
+    cache = os.environ.get("XDG_CACHE_HOME") or Path.home() / ".cache"
+    return Path(cache) / "coati_tpu_torch"
+
+
+BUILD_DIR = build_dir()
+# -fmad=false: no contraction anywhere; the kernels spell out the only FMAs
+# the reference has (the two margin formulas) as __fmaf_rn
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
+)
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+SIGNATURES = {
+    # aseq bseq lens_a lens_b table gap ring bp corners,
+    # B NA NB k table_len ring_shared table_shared threads, stream
+    "coati_wavefront_fill": [_P] * 9 + [_I] * 8 + [_P],
+    # bp cM cD cI lens_a lens_b ops score, B Dtot C k max_steps, stream
+    "coati_traceback_walk": [_P] * 8 + [_I] * 5 + [_P],
+}
+
+_lib = None
+_lock = threading.Lock()
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
+    cand = Path(home) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    raise RuntimeError("nvcc not found: set CUDA_HOME to the CUDA toolkit")
+
+
+def library_path() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sorted(CSRC.glob("*.cu*")):
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"libcoati_tpu_torch_{h.hexdigest()[:16]}.so"
+
+
+def build() -> tuple[Path, str]:
+    """Compile the kernels unless the library for these sources exists.
+    Returns the library's path and nvcc's output ("" when nothing was
+    built); the output includes ptxas' register and shared memory use."""
+    out = library_path()
+    if out.exists():
+        return out, ""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+           *[str(s) for s in sorted(CSRC.glob("*.cu"))]]
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    log = res.stdout + res.stderr
+    if res.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{log}")
+    os.replace(tmp, out)
+    return out, log
+
+
+def load() -> ctypes.CDLL:
+    """The kernel library, built on first use."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build()[0]))
+            for name, argtypes in SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = _I
+            _lib = lib
+    return _lib
+
+
+def check(rc: int, what: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{what}: CUDA error {rc} at launch")
