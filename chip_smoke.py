@@ -3,19 +3,24 @@
 
     python3 chip_smoke.py        # from the repository root; needs one card
 
-Phases, each printing one line (any failure raises, exit code non-zero):
+Phases, each printing lines (any failure raises, exit code non-zero):
 
 1. device  - requires torch.cuda.is_available(); prints nvidia-smi's card
              name and power limit, the torch and CUDA versions.
 2. build   - nvcc-builds the kernels from coati_tpu_torch/csrc.
-3. kernels - the fill and walk kernels against their plain PyTorch versions
-             on the card: k=1 and k=3, ragged lengths in one bucket, IUPAC
+3. kernels - every kernel against its plain PyTorch version on the card.
+             Fill and walk: k=1 and k=3, ragged lengths in one bucket, IUPAC
              codes, stacked table_idx tables, and each of the fill's four
              routes (ring and table each in shared or global memory).
-             Corners, scores, backpointers on true-matrix cells and op
-             sequences must be bit-equal.
+             Segment kernel, score kernel and segment walk: k=1 and k=3,
+             ragged groups with IUPAC and gap codes, a segment length that
+             does not divide the diagonals, each route of the sweep (one
+             block a pair with the ring in shared or in global memory,
+             several blocks a pair); after every segment the ring and raw corners,
+             the backpointers on true cells, the walk state and the ops.
+             Everything must be bit-equal.
 4. main    - the batch verb's batch_align over 10,000 synthetic mar-mg
-             pairs (bench.py's make_pairs and length mix, seed 0), run twice;
+             pairs (make_pairs and the length mix below, seed 0), run twice;
              then WARM_RUNS warm runs are timed; the launch counters are reset
              just before the first warm run and read just after it. Checks on
              that run: every alignment ungaps to its inputs, the pairs in
@@ -24,8 +29,22 @@ Phases, each printing one line (any failure raises, exit code non-zero):
              equals the plain version on the card (strings and f32 scores),
              the CLI's alignpair gives CT----ATAGTG on the reference
              example, both kernels launched.
-5. numbers - warm alignments/s, fill and walk device time from CUDA events,
-             fill Gcells/s, kernel vs plain times, peak device memory.
+5. long    - batch_align over 1,000 pairs of the same mix plus four pairs of
+             29,397-31,998 nt, routed by the default thresholds, and
+             viterbi_scores_batch over the same pairs; counters reset just
+             before, read just after. Checks: every alignment ungaps to its
+             inputs; the four long pairs equal the full-backpointer fill +
+             walk route on the card and every score equals the score
+             kernel's; a two-pair 6-8 knt group through the long route in
+             several segments equals the plain versions end to end; the
+             pairs of tests/data/torch_long_path_golden.json, forced through
+             the long route, equal the JAX reference's results; the segment,
+             score and segment-walk kernels launched. Then one segment of
+             the four-pair group at its full shape: kernel against plain; and
+             one pair of LONGPAIR_NT nt through the CLI's alignpair: it
+             ungaps to its inputs and its score is the score kernel's.
+6. numbers - warm alignments/s, device times from CUDA events, Gcells/s,
+             kernel against plain times and bounds, peak device memory.
 
 The line before last is a JSON object with one entry per kernel; the last
 line is {"ok": true, "device": {...}}.
@@ -49,16 +68,43 @@ sys.path.insert(0, str(ROOT))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-from bench import make_pairs  # noqa: E402
-from coati_tpu_torch import batchrun, cli  # noqa: E402
-from coati_tpu_torch.align.wavefront import traceback_plain, wavefront_plain  # noqa: E402
+from coati_tpu_torch import batchrun, cli, utils  # noqa: E402
+from coati_tpu_torch.align import engine, longseq  # noqa: E402
+from coati_tpu_torch.align.wavefront import (  # noqa: E402
+    traceback_plain,
+    walk_segment_plain,
+    wavefront_plain,
+)
+from coati_tpu_torch.constants import CODONS61  # noqa: E402
 from coati_tpu_torch.kernels import _build  # noqa: E402
 from coati_tpu_torch.kernels import traceback_walk as walk_mod  # noqa: E402
 from coati_tpu_torch.kernels import wavefront_fill as fill_mod  # noqa: E402
+from coati_tpu_torch.kernels import wavefront_score as score_mod  # noqa: E402
+from coati_tpu_torch.kernels import wavefront_segment as seg_mod  # noqa: E402
 from coati_tpu_torch.params import alignment_params, params_from_numpy  # noqa: E402
+from coati_tpu_torch.structs import SeqData  # noqa: E402
+from coati_tpu_torch.utils import encode_marginal  # noqa: E402
 
-LENGTH_MIX = [(156, 0.35), (471, 0.30), (999, 0.20), (1500, 0.15)]  # bench.py:34
+# the length classes (nt) and weights of the repo's bench headline
+LENGTH_MIX = [(156, 0.35), (471, 0.30), (999, 0.20), (1500, 0.15)]
 N_PAIRS = 10_000
+# long phase: the ladder's top and the reference's 32 knt benchmark size
+LONG_MIX = [(29397, 0.5), (31998, 0.5)]
+N_LONG = 4
+N_LONG_PHASE_MIX = 1_000  # pairs of LENGTH_MIX beside the long ones
+LONGPAIR_NT = 160_002  # the size of the reference's longest shipped example
+# the JAX reference's results for a few ~3 knt pairs forced through the long
+# route, written and checked by tests/test_torch_golden.py
+LONG_GOLDEN = ROOT / "tests" / "data" / "torch_long_path_golden.json"
+LONG_GOLDEN_SLOTS = 1024  # long_slots that forces them
+# H100 SXM data sheet: HBM3 bytes/s, and f32 operations/s outside the tensor
+# cores (an FMA counted as two)
+PEAK_BYTES_S = 3.35e12
+PEAK_F32_OPS_S = 67e12
+# f32 operations the recurrence does on one cell: 10 shared partial sums, 13
+# adds and maxima of M, D, I; with backpointers 2 more adds and 7 compares
+CELL_OPS = 23
+CELL_OPS_BP = 32
 # the JAX reference's results for some of the main path's pairs, written and
 # checked by tests/test_torch_golden.py
 GOLDEN = ROOT / "tests" / "data" / "torch_main_path_golden.json"
@@ -74,7 +120,53 @@ KERNELS = {
         "source": "coati_tpu_torch/csrc/traceback_walk.cu",
         "replaces": "coati_tpu/align/wavefront.py:271",
     },
+    "wavefront_segment": {
+        "route": "cuda",
+        "source": "coati_tpu_torch/csrc/wavefront_segment.cu",
+        "replaces": "coati_tpu/kernels/wavefront_pallas.py:909",
+    },
+    "wavefront_score": {
+        "route": "cuda",
+        "source": "coati_tpu_torch/csrc/wavefront_segment.cu",
+        "replaces": "coati_tpu/kernels/wavefront_pallas.py:330",
+    },
+    "traceback_walk_segment": {
+        "route": "cuda",
+        "source": "coati_tpu_torch/csrc/traceback_walk.cu",
+        "replaces": "coati_tpu/align/longseq.py:57",
+    },
 }
+
+
+def make_pairs(n_pairs, rng, length_mix=LENGTH_MIX):
+    """Synthetic homologous pairs: ancestor = random codons, descendant =
+    ancestor with ~5% point mutations and 0-2 indels of 1-9 nt. Draw for
+    draw the pairs of the repo's bench (bench.py make_pairs), so equal seeds
+    give equal pairs."""
+    codon_arr = np.array(CODONS61)
+    lengths = [l for l, _ in length_mix]
+    probs = np.array([p for _, p in length_mix])
+    probs = probs / probs.sum()
+    pairs = []
+    nts = np.array(list("ACGT"))
+    for _ in range(n_pairs):
+        nt_len = int(rng.choice(lengths, p=probs))
+        anc = "".join(rng.choice(codon_arr, size=nt_len // 3))
+        des = list(anc)
+        idx = rng.random(len(des)) < 0.05
+        for i in np.nonzero(idx)[0]:
+            des[i] = str(rng.choice(nts))
+        des = "".join(des)
+        for _ in range(int(rng.integers(0, 3))):
+            ln = int(rng.integers(1, 10))
+            pos = int(rng.integers(0, max(1, len(des) - ln)))
+            if rng.random() < 0.5:
+                des = des[:pos] + des[pos + ln:]
+            else:
+                ins = "".join(rng.choice(nts, size=ln))
+                des = des[:pos] + ins + des[pos:]
+        pairs.append((anc, des))
+    return pairs
 
 
 def golden_record(index, row):
@@ -86,15 +178,66 @@ def golden_record(index, row):
             "sha256": hashlib.sha256(text.encode()).hexdigest()}
 
 
+def long_golden_record(index, result):
+    """Golden record of one engine AlignResult of long-path pair `index`."""
+    text = result.seq0 + "\n" + result.seq1
+    return {"index": index, "score": float(np.float32(result.score)),
+            "sha256": hashlib.sha256(text.encode()).hexdigest()}
+
+
+def long_golden_pairs(seed):
+    """The pairs of LONG_GOLDEN: three of 2,997 nt."""
+    return make_pairs(3, np.random.default_rng(seed), length_mix=[(2997, 1.0)])
+
+
+# the wrappers the engine and the long-pair path call, by name
+WRAPPERS = {
+    "wavefront_fill": (fill_mod, "wavefront_fill"),
+    "traceback_walk": (walk_mod, "traceback_walk"),
+    "wavefront_segment": (seg_mod, "wavefront_segment"),
+    "wavefront_score": (score_mod, "wavefront_score"),
+    "traceback_walk_segment": (walk_mod, "walk_segment"),
+}
+
+
+def _segment_plain(*args, want_carry=True, **kw):
+    adj, bp, carry = seg_mod.segment_plain(*args, **kw)
+    return adj, bp, (carry if want_carry else None)
+
+
+PLAIN = {
+    "wavefront_fill": wavefront_plain,
+    "traceback_walk": traceback_plain,
+    "wavefront_segment": _segment_plain,
+    "wavefront_score": score_mod.score_plain,
+    "traceback_walk_segment": walk_segment_plain,
+}
+
+
 @contextlib.contextmanager
-def wrappers(fill, walk):
-    """Stand fill and walk in for the kernel wrappers the engine calls."""
-    orig = (fill_mod.wavefront_fill, walk_mod.traceback_walk)
-    fill_mod.wavefront_fill, walk_mod.traceback_walk = fill, walk
+def wrappers(standins):
+    """Stand functions in for the kernel wrappers of those names."""
+    orig = {name: getattr(*WRAPPERS[name]) for name in standins}
+    for name, fn in standins.items():
+        setattr(*WRAPPERS[name], fn)
     try:
         yield
     finally:
-        fill_mod.wavefront_fill, walk_mod.traceback_walk = orig
+        for name, fn in orig.items():
+            setattr(*WRAPPERS[name], fn)
+
+
+def launch_counts():
+    return {"wavefront_fill": fill_mod.LAUNCHES,
+            "traceback_walk": walk_mod.LAUNCHES,
+            "wavefront_segment": seg_mod.LAUNCHES,
+            "wavefront_score": score_mod.LAUNCHES,
+            "traceback_walk_segment": walk_mod.SEGMENT_LAUNCHES}
+
+
+def reset_launch_counts():
+    fill_mod.LAUNCHES = walk_mod.LAUNCHES = seg_mod.LAUNCHES = 0
+    score_mod.LAUNCHES = walk_mod.SEGMENT_LAUNCHES = 0
 
 
 def say(phase: str, msg: str) -> None:
@@ -166,15 +309,6 @@ def _random_case(seed, k, B, na, nb, n_codes=4, G=1):
     return aseq, bseq, la.astype(np.int32), lb.astype(np.int32), tables
 
 
-def _true_cells(la, lb, k, Dtot, C, dev):
-    d = torch.arange(Dtot, device=dev)[None, :, None]
-    j = torch.arange(C, device=dev)[None, None, :]
-    i = d - j
-    la = la[:, None, None].long()
-    lb = lb[:, None, None].long()
-    return (i >= k) & (i < la + k) & (j >= k) & (j < lb + k)
-
-
 def check_case(dev, name, k, B, na, nb, route, n_codes=4, G=1, seed=0,
                timing=None):
     """One batch through both kernels and both plain versions; route is the
@@ -201,7 +335,7 @@ def check_case(dev, name, k, B, na, nb, route, n_codes=4, G=1, seed=0,
 
     fill_err = max(float((x - y).abs().max()) for x, y in zip(ck, cp))
     walk_err = float((sk - sp).abs().max())
-    mask = _true_cells(tla, tlb, k, bpk.shape[1], C, dev)
+    mask = _rect_cells(tla, tlb, k, 0, bpk.shape[1], C, dev, body=True)
     bad = []
     if not all(torch.equal(x, y) for x, y in zip(ck, cp)):
         bad.append("corners")
@@ -224,6 +358,14 @@ def check_case(dev, name, k, B, na, nb, route, n_codes=4, G=1, seed=0,
         out["walk_ms"] = elapsed_ms(lambda: walk_mod.traceback_walk(
             bpk, ck, tla, tlb, k=k, max_steps=steps), dev, 10)
         times = f"; fill {out['fill_ms']:.3f} ms, walk {out['walk_ms']:.3f} ms"
+        cells = segment_cells(la, lb, k, 0, bpk.shape[1])
+        in_bytes = sum(t.numel() * t.element_size()
+                       for t in (a, b, tla, tlb, p.table, p.gap_consts))
+        # inputs in; 1 B a cell of the pairs' matrices and the corners out
+        out["fill_bound"] = bound(in_bytes + cells + 12 * B, cells * CELL_OPS_BP)
+        # 1 B a step, corners and lens in; the ops buffer and scores out
+        n_steps = int((opk >= 0).sum())
+        out["walk_bound"] = bound(n_steps + 20 * B + opk.numel() + 4 * B, 0)
     if timing == "all":
         out["fill_plain_ms"] = elapsed_ms(lambda: wavefront_plain(
             a, b, tla, tlb, p.table, p.gap_consts, k=k), dev, 2)
@@ -236,6 +378,170 @@ def check_case(dev, name, k, B, na, nb, route, n_codes=4, G=1, seed=0,
         f"{int(mask.sum())} true cells, {int((opk >= 0).sum())} ops and scores "
         f"bit-equal to plain{times}")
     return out
+
+
+def _random_group(seed, k, la_range, lb_range, B):
+    """Ragged group of B pairs padded to its maxima, descendants with all 15
+    IUPAC columns and the gap code 15; lengths multiples of 3k and k."""
+    rng = np.random.default_rng(seed)
+    la = rng.integers(la_range[0] // (3 * k), la_range[1] // (3 * k) + 1, B) * 3 * k
+    lb = rng.integers(lb_range[0] // k, lb_range[1] // k + 1, B) * k
+    aseq = np.zeros((B, int(la.max())), np.int32)
+    bseq = np.zeros((B, int(lb.max())), np.int32)
+    for p in range(B):
+        aseq[p, : la[p]] = rng.integers(0, 183, la[p])
+        bseq[p, : lb[p]] = rng.integers(0, 16, lb[p])
+    return aseq, bseq, la.astype(np.int32), lb.astype(np.int32)
+
+
+def _rect_cells(la, lb, k, d_first, n_diag, C, dev, body=False):
+    """[B, n_diag, C] mask of the cells of each pair's (la+k) x (lb+k)
+    matrix on diagonals d_first .. d_first + n_diag - 1; body: only cells
+    with i, j >= k."""
+    d = (d_first + torch.arange(n_diag, device=dev))[None, :, None]
+    j = torch.arange(C, device=dev)[None, None, :]
+    i = d - j
+    lo = k if body else 0
+    la = la[:, None, None].long()
+    lb = lb[:, None, None].long()
+    return (i >= lo) & (i < la + k) & (j >= lo) & (j < lb + k)
+
+
+def segment_cells(la, lb, k, d0, T):
+    """Cells of the pairs' (la+k) x (lb+k) matrices on diagonals [d0, d0+T)."""
+    d = np.arange(d0, d0 + T, dtype=np.int64)[None, :]
+    rows = la.astype(np.int64)[:, None] + k
+    cols = lb.astype(np.int64)[:, None] + k
+    n = np.minimum(d, cols - 1) - np.maximum(0, d - (rows - 1)) + 1
+    return int(np.maximum(n, 0).sum())
+
+
+def walk_difference(st_k, ops_k, st_p, ops_p):
+    """How far a segment walk is from its plain version: the largest
+    absolute difference of the (i, j, st, s) state or of an op code."""
+    return float(max((st_k - st_p).abs().max(),
+                     (ops_k.int() - ops_p.int()).abs().max()))
+
+
+def check_segment_case(dev, name, k, B, la_range, lb_range, T, route, seed):
+    """One ragged group through the segment kernel, the score kernel and the
+    segment walk, and through their plain versions, each chained from its own
+    carry: after every segment of pass 1 the ring on the pairs' cells and the
+    raw corners, after every segment of pass 2 the backpointers on the true
+    cells, the walk state and the ops must be bit-equal; so must the score
+    kernel's corners and the last segment's adjusted corners. route is the
+    one the sweep must take: "shared" or "global" (one block a pair, the ring
+    there) or "blocks" (several blocks a pair)."""
+    aseq, bseq, la, lb = _random_group(seed, k, la_range, lb_range, B)
+    p = params_from_numpy(alignment_params(gap_len=k).subst_matrix,
+                          alignment_params(gap_len=k).gap, dev)
+    a, b, tla, tlb = (torch.from_numpy(x).to(dev) for x in (aseq, bseq, la, lb))
+    args = (a, b, tla, tlb, p.table, p.gap_consts)
+    B, NA = aseq.shape
+    NB = bseq.shape[1]
+    C = NB + k
+    K = max(k, 2)
+    Dtot = NA + NB + 2 * k - 1
+    n_seg = -(-Dtot // T)
+    blocks, threads = seg_mod.sweep_shape(B, C, dev)
+    took = "blocks" if blocks > 1 else (
+        "shared" if fill_mod.ring_in_shared(C, k) else "global")
+    if took != route or Dtot % T == 0:
+        raise AssertionError(f"segment case {name}: route {took}, meant "
+                             f"{route}; T={T} against Dtot={Dtot}")
+
+    def bad(what, s):
+        raise AssertionError(f"segment case {name}: {what} differ from the "
+                             f"plain version after segment {s}")
+
+    err = 0.0
+    ck, cp = seg_mod.empty_carry(B, C, k, dev), seg_mod.empty_carry(B, C, k, dev)
+    ckpts_k, ckpts_p = [], []
+    for s in range(n_seg):
+        ckpts_k.append(ck)
+        ckpts_p.append(cp)
+        adj_k, _, ck = seg_mod.wavefront_segment(*args, ck, s * T, k=k,
+                                                 n_steps=T, want_bp=False)
+        adj_p, _, cp = seg_mod.segment_plain(*args, cp, s * T, k=k,
+                                             n_steps=T, want_bp=False)
+        # ring[q] is diagonal (s+1)T - 1 - q: the mask runs down the diagonals
+        mask = _rect_cells(tla, tlb, k, (s + 1) * T - K, K, C, dev).flip(1)
+        rk = ck[0].permute(2, 0, 1, 3)  # [B, K, 3, C]
+        rp = cp[0].permute(2, 0, 1, 3)
+        m4 = mask[:, :, None, :].expand_as(rk)
+        if not torch.equal(rk[m4], rp[m4]):
+            bad("ring", s)
+        if not torch.equal(ck[1], cp[1]):
+            bad("raw corners", s)
+    if not torch.equal(adj_k, adj_p):
+        bad("adjusted corners", n_seg - 1)
+    err = max(err, float((adj_k - adj_p).abs().max()))
+
+    sc_k = score_mod.wavefront_score(*args, k=k)
+    sc_p = score_mod.score_plain(*args, k=k)
+    if not (torch.equal(sc_k, sc_p) and torch.equal(sc_k, adj_k)):
+        raise AssertionError(f"segment case {name}: score kernel corners differ "
+                             f"from the plain version or the segment chain")
+    if not bool(torch.isfinite(sc_k).all()):
+        raise AssertionError(f"segment case {name}: non-finite corners")
+
+    steps = int((la + lb).max())
+    st_k = torch.zeros((4, B), dtype=torch.int32, device=dev)
+    st_p = st_k.clone()
+    ops_k = torch.full((steps, B), -1, dtype=torch.int8, device=dev)
+    ops_p = ops_k.clone()
+    n_cells = 0
+    walk_err = 0.0
+    for s in range(n_seg - 1, -1, -1):
+        _, bp_k, _ = seg_mod.wavefront_segment(
+            *args, ckpts_k[s], s * T, k=k, n_steps=T, want_bp=True, want_carry=False)
+        _, bp_p, _ = seg_mod.segment_plain(*args, ckpts_p[s], s * T, k=k,
+                                           n_steps=T, want_bp=True)
+        mask = _rect_cells(tla, tlb, k, s * T, T, C, dev, body=True)
+        n_cells += int(mask.sum())
+        if not torch.equal(bp_k[mask], bp_p[mask]):
+            bad(f"bp ({int((bp_k[mask] != bp_p[mask]).sum())} cells)", s)
+        # the topmost segment's walk starts at the corners
+        start_k, start_p = ((adj, tla, tlb) if s == n_seg - 1 else None
+                            for adj in (adj_k, adj_p))
+        _, _, score_k = walk_mod.walk_segment(bp_k, s * T, st_k, ops_k, k=k,
+                                              start=start_k)
+        _, _, score_p = walk_segment_plain(bp_p, s * T, st_p, ops_p, k=k,
+                                           start=start_p)
+        walk_err = max(walk_err, walk_difference(st_k, ops_k, st_p, ops_p))
+        if start_k is not None:
+            walk_err = max(walk_err, float((score_k - score_p).abs().max()))
+            if not torch.equal(score_k, score_p):
+                bad("walk scores", s)
+        if not torch.equal(st_k, st_p):
+            bad("walk state", s)
+        if not torch.equal(ops_k, ops_p):
+            bad("ops", s)
+    torch.cuda.synchronize(dev)
+    done = (st_k[0] == k - 1) & (st_k[1] == k - 1)
+    if not bool(done.all()):
+        raise AssertionError(f"segment case {name}: a walk did not reach the origin")
+    say("kernels", f"{name}: B={B} NA={NA} NB={NB} k={k} T={T} ({n_seg} segments) "
+        f"{blocks} x {threads} threads a pair, route {route}: ring, raw corners, "
+        f"bp on {n_cells} true cells, "
+        f"walk state and {int((ops_k >= 0).sum())} ops bit-equal to plain after "
+        f"every segment; score kernel corners bit-equal")
+    return err, walk_err
+
+
+def phase_segment_kernels(dev):
+    cases = [
+        ("ragged 1.5-2 knt", 1, 3, (1500, 2000), (1500, 2000), 777, "shared", 11),
+        ("ragged 1.5-2 knt, k=3", 3, 3, (1500, 2000), (1500, 2000), 777, "shared", 12),
+        ("wide descendants", 1, 3, (300, 600), (6500, 6600), 1000, "blocks", 13),
+        ("wide descendants, k=3", 3, 3, (300, 600), (4900, 5100), 1000, "blocks", 14),
+        ("wide group of wide descendants", 1, 67, (150, 300), (6500, 6600), 1000,
+         "global", 17),
+        ("wide group of wide descendants, k=3", 3, 67, (150, 300), (4900, 5100),
+         1000, "global", 18),
+    ]
+    errs = [check_segment_case(dev, *c) for c in cases]
+    return max(e[0] for e in errs), max(e[1] for e in errs)
 
 
 def phase_kernels(dev):
@@ -266,13 +572,14 @@ def phase_kernels(dev):
 
 # --- phase 4 ----------------------------------------------------------------
 class KernelTimer:
-    """Records CUDA events around every wrapper call of one run, for the
-    fill and walk device time of the main path."""
+    """Records CUDA events around every kernel wrapper call of one run. The
+    segment kernel's calls are kept apart by pass: "segment_pass1" without
+    backpointers, "segment_bp" with."""
 
     def __init__(self, dev):
         self.dev = dev
-        self.events = {"wavefront_fill": [], "traceback_walk": []}
-        self.padded_cells = 0
+        self.events = {}
+        self.padded_cells = 0  # of the fill
         self.wall = 0.0  # seconds of the traced run, set by the caller
         self._swap = None
 
@@ -283,7 +590,10 @@ class KernelTimer:
             start.record()
             out = fn(*args, **kw)
             end.record()
-            self.events[name].append((start, end))
+            key = name
+            if name == "wavefront_segment":
+                key = "segment_bp" if kw["want_bp"] else "segment_pass1"
+            self.events.setdefault(key, []).append((start, end))
             if name == "wavefront_fill":
                 (B, NA), NB = args[0].shape, args[1].shape[1]
                 k = kw["k"]
@@ -292,9 +602,8 @@ class KernelTimer:
         return timed
 
     def __enter__(self):
-        self._swap = wrappers(
-            self._wrap("wavefront_fill", fill_mod.wavefront_fill),
-            self._wrap("traceback_walk", walk_mod.traceback_walk))
+        self._swap = wrappers({name: self._wrap(name, getattr(*WRAPPERS[name]))
+                               for name in WRAPPERS})
         self._swap.__enter__()
         return self
 
@@ -302,8 +611,11 @@ class KernelTimer:
         self._swap.__exit__(*exc)
         torch.cuda.synchronize(self.dev)
 
+    def count(self, name):
+        return len(self.events.get(name, []))
+
     def seconds(self, name):
-        return sum(s.elapsed_time(e) for s, e in self.events[name]) / 1e3
+        return sum(s.elapsed_time(e) for s, e in self.events.get(name, [])) / 1e3
 
 
 def _run_batch(named, dev):
@@ -312,6 +624,17 @@ def _run_batch(named, dev):
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     return n, [json.loads(line) for line in out.getvalue().splitlines()]
+
+
+def _check_rows(named, rows):
+    """Every row holds a finite score and an alignment that ungaps to its
+    inputs."""
+    for (na, a, nd, b), row in zip(named, rows):
+        aln = row.get("alignment")
+        if (aln is None or aln[na].replace("-", "") != a
+                or aln[nd].replace("-", "") != b or len(aln[na]) != len(aln[nd])
+                or not np.isfinite(row["score"])):
+            raise AssertionError(f"bad alignment row {str(row)[:300]}")
 
 
 def _subset_matches_plain(named, rows, dev):
@@ -323,7 +646,7 @@ def _subset_matches_plain(named, rows, dev):
         by_len.setdefault(len(a), []).append(i)
     per = max(1, 256 // len(by_len))
     subset = [i for idxs in by_len.values() for i in idxs[:per]]
-    with wrappers(wavefront_plain, traceback_plain):
+    with wrappers({n: PLAIN[n] for n in ("wavefront_fill", "traceback_walk")}):
         _, plain = _run_batch([named[i] for i in subset], dev)
     for i, got in zip(subset, plain):
         want = rows[i]
@@ -355,24 +678,19 @@ def phase_main(dev, n_pairs=N_PAIRS):
     _run_batch(named, dev)  # first run: allocator, pinned pools, caches
     cold = time.perf_counter() - t0
 
-    fill_mod.LAUNCHES = walk_mod.LAUNCHES = 0
+    reset_launch_counts()
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
     n, rows = _run_batch(named, dev)
     warm = [time.perf_counter() - t0]
-    launches = {"wavefront_fill": fill_mod.LAUNCHES,
-                "traceback_walk": walk_mod.LAUNCHES}
+    launches = {name: count for name, count in launch_counts().items()
+                if name in ("wavefront_fill", "traceback_walk")}
     peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
 
     if n != len(named) or len(rows) != len(named):
         raise AssertionError(f"aligned {n} of {len(named)} pairs")
-    for (na, a, nd, b), row in zip(named, rows):
-        aln = row.get("alignment")
-        if (aln is None or aln[na].replace("-", "") != a
-                or aln[nd].replace("-", "") != b or len(aln[na]) != len(aln[nd])
-                or not np.isfinite(row["score"])):
-            raise AssertionError(f"bad alignment row {row}")
+    _check_rows(named, rows)
     if dev.type == "cuda" and min(launches.values()) == 0:
         raise AssertionError(f"a kernel of the main path never launched: {launches}")
     golden = json.loads(GOLDEN.read_text())["pairs"]
@@ -400,11 +718,259 @@ def phase_main(dev, n_pairs=N_PAIRS):
             _run_batch(named, dev)
         timer.wall = time.perf_counter() - t0
     return {"warm_s": warm, "cold_s": cold, "launches": launches, "peak": peak,
-            "true_cells": true_cells, "timer": timer, "n": n}
+            "true_cells": true_cells, "timer": timer, "n": n, "named": named}
 
 
 # --- phase 5 ----------------------------------------------------------------
-def phase_numbers(card, main_shape, main, fill_err, walk_err):
+def _encoded(pairs):
+    enc = [encode_marginal(a, b) for a, b in pairs]
+    return ([e[0] for e in enc], [e[1] for e in enc],
+            [a for a, _ in pairs], [b for _, b in pairs])
+
+
+def score_kernel_scores(pairs, aln, dev):
+    """The scores batch_align and alignpair must give for `pairs`: the score
+    kernel's over the pairs with their end stop codons trimmed, then the
+    end-stop adjustment those verbs apply (utils.restore_end_stops)."""
+    datas = []
+    for a, b in pairs:
+        d = SeqData(names=["a", "b"], seqs=[a, b])
+        utils.trim_end_stops(d)
+        datas.append(d)
+    enc_as, enc_bs, _, _ = _encoded([tuple(d.seqs) for d in datas])
+    scores = engine.viterbi_scores_batch(enc_as, enc_bs, aln.subst_matrix,
+                                         aln.gap, device=dev)
+    out = []
+    for d, sc in zip(datas, scores):
+        d.score = float(sc)
+        utils.restore_end_stops(d, aln.gap)
+        out.append(np.float32(d.score))
+    return out
+
+
+def _same_results(what, got, want):
+    for i, (g, w) in enumerate(zip(got, want)):
+        if (g.seq0, g.seq1) != (w.seq0, w.seq1) or np.float32(g.score) != np.float32(w.score):
+            raise AssertionError(f"{what}: pair {i} differs (scores {g.score} "
+                                 f"and {w.score})")
+
+
+def _forced_group_matches_plain(dev, aln):
+    """Two pairs of 6-8 knt through the long route in several segments: the
+    kernels' strings and scores equal the plain versions' on the card."""
+    pairs = make_pairs(2, np.random.default_rng(2), length_mix=[(6000, 0.5), (7998, 0.5)])
+    enc = _encoded(pairs)
+    run = lambda: longseq.viterbi_align_long_batch(  # noqa: E731
+        *enc, aln.subst_matrix, aln.gap, seg_diagonals=3000, device=dev)
+    got = run()
+    names = ("wavefront_segment", "traceback_walk_segment")
+    with wrappers({n: PLAIN[n] for n in names}):
+        want = run()
+    _same_results("forced long group against plain", got, want)
+    for (a, b), r in zip(pairs, got):
+        if r.seq0.replace("-", "") != a or r.seq1.replace("-", "") != b:
+            raise AssertionError("forced long group does not ungap to its inputs")
+    return [len(a) for a, _ in pairs]
+
+
+def _long_golden_matches(dev, aln):
+    golden = json.loads(LONG_GOLDEN.read_text())
+    pairs = long_golden_pairs(golden["seed"])
+    res = engine.viterbi_align_batch(*_encoded(pairs), aln.subst_matrix, aln.gap,
+                                     long_slots=LONG_GOLDEN_SLOTS, device=dev)
+    for want in golden["pairs"]:
+        got = long_golden_record(want["index"], res[want["index"]])
+        if got != want:
+            raise AssertionError(f"long pair {want['index']}: {got} != JAX "
+                                 f"reference {want}")
+    return len(golden["pairs"])
+
+
+def _segment_cell(dev, long_pairs, aln):
+    """The long group's middle segment at its full shape: the segment kernel
+    (with and without backpointers) and the segment walk, each timed against
+    its plain version and held bit-equal to it. Pass 1 runs to the middle
+    segment on the kernel to make the checkpoint."""
+    k = int(aln.gap.len)
+    enc_as, enc_bs, _, _ = _encoded(long_pairs)
+    aseq, bseq, la, lb = longseq._pad_group(enc_as, enc_bs)
+    p = params_from_numpy(aln.subst_matrix, aln.gap, dev)
+    a, b, tla, tlb = (torch.from_numpy(x).to(dev) for x in (aseq, bseq, la, lb))
+    args = (a, b, tla, tlb, p.table, p.gap_consts)
+    B, NA = aseq.shape
+    NB = bseq.shape[1]
+    C = NB + k
+    Dtot = NA + NB + 2 * k - 1
+    T = min(Dtot, longseq.seg_diagonals_for(B, C))
+    mid = (-(-Dtot // T)) // 2
+    d0 = mid * T
+    carry = seg_mod.empty_carry(B, C, k, dev)
+    for s in range(mid):
+        _, _, carry = seg_mod.wavefront_segment(*args, carry, s * T, k=k,
+                                                n_steps=T, want_bp=False)
+    kw = dict(k=k, n_steps=T)
+    _, bp_k, out_k = seg_mod.wavefront_segment(*args, carry, d0, want_bp=True, **kw)
+    _, bp_p, out_p = seg_mod.segment_plain(*args, carry, d0, want_bp=True, **kw)
+    mask = _rect_cells(tla, tlb, k, d0, T, C, dev, body=True)
+    ring_mask = _rect_cells(tla, tlb, k, d0 + T - max(k, 2), max(k, 2), C, dev).flip(1)
+    rk, rp = (o[0].permute(2, 0, 1, 3) for o in (out_k, out_p))
+    m4 = ring_mask[:, :, None, :].expand_as(rk)
+    if not (torch.equal(bp_k[mask], bp_p[mask]) and torch.equal(rk[m4], rp[m4])
+            and torch.equal(out_k[1], out_p[1])):
+        raise AssertionError("segment cell: kernel differs from the plain version")
+    seg_err = float((rk[m4] - rp[m4]).abs().max())
+    del bp_p, mask, m4
+
+    # a walk entering the segment at its top, near the main diagonal
+    d_top = d0 + T - 1
+    j0 = torch.minimum(torch.full_like(tlb, d_top // 2), tlb + (k - 1))
+    entry = torch.stack([d_top - j0, j0, torch.zeros_like(j0), torch.zeros_like(j0)])
+    ops_k = torch.full((T, B), -1, dtype=torch.int8, device=dev)
+    ops_p = ops_k.clone()
+    st_k, st_p = entry.clone(), entry.clone()
+    walk_mod.walk_segment(bp_k, d0, st_k, ops_k, k=k)
+    walk_segment_plain(bp_k, d0, st_p, ops_p, k=k)
+    walk_err = walk_difference(st_k, ops_k, st_p, ops_p)
+    if not (torch.equal(st_k, st_p) and torch.equal(ops_k, ops_p)):
+        raise AssertionError("segment cell: walk differs from the plain version")
+    steps = int((ops_k >= 0).sum())
+
+    def walk_again(fn):
+        def run():
+            fn(bp_k, d0, entry.clone(), ops_k, k=k)
+        return run
+
+    cells = segment_cells(la, lb, k, d0, T)
+    carry_bytes = sum(t.numel() * 4 for t in carry)
+    in_bytes = sum(t.numel() * t.element_size() for t in args) + carry_bytes
+    out = {
+        "shape": f"B={B} NA={NA} NB={NB} k={k} d0={d0} T={T}", "cells": cells,
+        "steps": steps, "err": seg_err, "walk_err": walk_err,
+        "segment_bp_ms": elapsed_ms(lambda: seg_mod.wavefront_segment(
+            *args, carry, d0, want_bp=True, want_carry=False, **kw), dev, 2),
+        "segment_pass1_ms": elapsed_ms(lambda: seg_mod.wavefront_segment(
+            *args, carry, d0, want_bp=False, **kw), dev, 2),
+        "segment_plain_ms": elapsed_ms(lambda: seg_mod.segment_plain(
+            *args, carry, d0, want_bp=True, **kw), dev, 1),
+        "walk_ms": elapsed_ms(walk_again(walk_mod.walk_segment), dev, 5),
+        "walk_plain_ms": elapsed_ms(walk_again(walk_segment_plain), dev, 1),
+        # with backpointers: inputs and carry in, 1 B a cell and adj out
+        "segment_bound": bound(in_bytes + cells + 12 * B, cells * CELL_OPS_BP),
+        # the walk reads 1 B a step and its state, writes 1 B a step and its state
+        "walk_bound": bound(2 * steps + 2 * 16 * B, 0),
+    }
+    say("long", f"segment cell {out['shape']}: {cells} cells, segment kernel "
+        f"{out['segment_bp_ms']:.1f} ms with bp, {out['segment_pass1_ms']:.1f} ms "
+        f"without, plain {out['segment_plain_ms']:.1f} ms; walk of {steps} steps "
+        f"{out['walk_ms']:.3f} ms, plain {out['walk_plain_ms']:.1f} ms; all "
+        f"bit-equal to plain")
+    return out
+
+
+def bound(n_bytes, n_ops):
+    """(ms, "bytes" or "operations"): the least time the card could take to
+    move n_bytes and do n_ops f32 operations."""
+    by_bytes = n_bytes / PEAK_BYTES_S * 1e3
+    by_ops = n_ops / PEAK_F32_OPS_S * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
+def phase_long(dev, mix_named):
+    aln = alignment_params()
+    t0 = time.perf_counter()
+    long_pairs = make_pairs(N_LONG, np.random.default_rng(1), length_mix=LONG_MIX)
+    named = list(mix_named[:N_LONG_PHASE_MIX])
+    first_long = len(named)
+    named += [(f"anc{first_long + i}", a, f"des{first_long + i}", b)
+              for i, (a, b) in enumerate(long_pairs)]
+    k = int(aln.gap.len)
+    routed = [longseq.is_long_pair(len(a), len(b), k) for _, a, _, b in named]
+    if routed != [False] * first_long + [True] * N_LONG:
+        raise AssertionError("the default thresholds did not route exactly the "
+                             f"{N_LONG} long pairs to the segmented path")
+    for a, b in long_pairs:
+        d = SeqData(names=["a", "b"], seqs=[a, b])
+        utils.trim_end_stops(d)
+        if any(d.stops):  # the engine-level comparison below takes none
+            raise AssertionError("a long pair ends in a stop codon")
+    say("long", f"made {N_LONG} pairs of "
+        f"{', '.join(f'{len(a)}x{len(b)}' for a, b in long_pairs)} nt in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    with KernelTimer(dev) as timer:
+        n, rows = _run_batch(named, dev)
+    timer.wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev)
+    t0 = time.perf_counter()
+    scores = score_kernel_scores([(a, b) for _, a, _, b in named], aln, dev)
+    score_wall = time.perf_counter() - t0
+    launches = launch_counts()
+
+    if n != len(named) or len(rows) != len(named):
+        raise AssertionError(f"aligned {n} of {len(named)} pairs")
+    _check_rows(named, rows)
+    if dev.type == "cuda" and min(launches.values()) == 0:
+        raise AssertionError(f"a kernel of the long path never launched: {launches}")
+    for i, (row, sc) in enumerate(zip(rows, scores)):
+        if np.float32(row["score"]) != sc:
+            raise AssertionError(f"pair {i}: alignment score {row['score']} != "
+                                 f"score kernel's {sc}")
+    t0 = time.perf_counter()
+    full = engine.viterbi_align_batch(*_encoded(long_pairs), aln.subst_matrix,
+                                      aln.gap, long_slots=10**9, device=dev)
+    full_wall = time.perf_counter() - t0
+    for i, r in enumerate(full):
+        row = rows[first_long + i]
+        got = (row["alignment"][f"anc{first_long + i}"],
+               row["alignment"][f"des{first_long + i}"], np.float32(row["score"]))
+        if got != (r.seq0, r.seq1, np.float32(r.score)):
+            raise AssertionError(f"long pair {i}: segmented path differs from "
+                                 f"the full-backpointer route")
+    forced = _forced_group_matches_plain(dev, aln)
+    n_golden = _long_golden_matches(dev, aln)
+
+    group = longseq._pad_group(*_encoded(long_pairs)[:2])
+    C = group[1].shape[1] + k
+    Dtot = group[0].shape[1] + group[1].shape[1] + 2 * k - 1
+    T = min(Dtot, longseq.seg_diagonals_for(N_LONG, C))
+    say("long", f"batch_align {n} pairs ({N_LONG} long) in {timer.wall:.2f} s wall; "
+        f"viterbi_scores_batch {score_wall:.2f} s; launches {launches}; all ungap "
+        f"to their inputs; every score equals the score kernel's; the long pairs "
+        f"equal the full-bp route ({full_wall:.2f} s); forced group of "
+        f"{forced} nt equals plain; {n_golden} long golden pairs equal the JAX "
+        f"reference")
+    return {"timer": timer, "launches": launches, "peak": peak, "n": n,
+            "score_wall": score_wall, "full_wall": full_wall,
+            "true_cells": sum(len(a) * len(b) for a, b in long_pairs),
+            "seg_diagonals": T, "segments": timer.count("segment_bp"),
+            "group": f"B={N_LONG} C={C} Dtot={Dtot}",
+            "cell": _segment_cell(dev, long_pairs, aln)}
+
+
+def score_cell(dev):
+    """The score kernel at the fill's kernel cell (B=64, <=999 nt, k=1)
+    against its plain version."""
+    aseq, bseq, la, lb, tables = _random_case(1, 1, 64, (600, 999), (600, 999))
+    p = params_from_numpy(tables, alignment_params().gap, dev)
+    args = [torch.from_numpy(x).to(dev) for x in (aseq, bseq, la, lb)]
+    args += [p.table, p.gap_consts]
+    got = score_mod.wavefront_score(*args, k=1)
+    want = score_mod.score_plain(*args, k=1)
+    if not torch.equal(got, want):
+        raise AssertionError("score cell: kernel differs from the plain version")
+    cells = segment_cells(la, lb, 1, 0, aseq.shape[1] + bseq.shape[1] + 1)
+    in_bytes = sum(t.numel() * t.element_size() for t in args)
+    return {"ms": elapsed_ms(lambda: score_mod.wavefront_score(*args, k=1), dev, 10),
+            "plain_ms": elapsed_ms(lambda: score_mod.score_plain(*args, k=1), dev, 2),
+            "err": float((got - want).abs().max()), "cells": cells,
+            "bound": bound(in_bytes + 12 * 64, cells * CELL_OPS)}
+
+
+# --- phase 6 ----------------------------------------------------------------
+def phase_numbers(card, main_shape, main, long, score, errs):
     tag = f"[{card}]"
     t = main["timer"]
     fill_s, walk_s = t.seconds("wavefront_fill"), t.seconds("traceback_walk")
@@ -414,8 +980,8 @@ def phase_numbers(card, main_shape, main, fill_err, walk_err):
         f"{main['n'] / w[0]:.1f}, slowest {main['n'] / w[-1]:.1f} aln/s; cold "
         f"{main['cold_s']:.2f} s)")
     say("numbers", f"{tag} main path device time (CUDA events): fill "
-        f"{fill_s * 1e3:.1f} ms over {len(t.events['wavefront_fill'])} launches, walk "
-        f"{walk_s * 1e3:.1f} ms over {len(t.events['traceback_walk'])} launches; "
+        f"{fill_s * 1e3:.1f} ms over {t.count('wavefront_fill')} launches, walk "
+        f"{walk_s * 1e3:.1f} ms over {t.count('traceback_walk')} launches; "
         f"the two kernels busy {(fill_s + walk_s) / t.wall:.1%} of that run's "
         f"{t.wall:.3f} s wall")
     say("numbers", f"{tag} fill {main['true_cells'] / fill_s / 1e9:.2f} Gcells/s over "
@@ -423,30 +989,114 @@ def phase_numbers(card, main_shape, main, fill_err, walk_err):
         f"{t.padded_cells / fill_s / 1e9:.2f} Gcells/s over {t.padded_cells} padded cells")
     say("numbers", f"{tag} B=64 999 nt bucket: fill {main_shape['fill_ms']:.3f} ms vs plain "
         f"{main_shape['fill_plain_ms']:.1f} ms; walk {main_shape['walk_ms']:.3f} ms vs "
-        f"plain {main_shape['walk_plain_ms']:.1f} ms")
+        f"plain {main_shape['walk_plain_ms']:.1f} ms; score {score['ms']:.3f} ms vs "
+        f"plain {score['plain_ms']:.1f} ms")
     say("numbers", f"{tag} B=64 999 nt bucket: fill with the table in shared memory "
         f"{main_shape['fill_ms']:.3f} ms, in global memory (G=24) "
         f"{main_shape['fill_global_table_ms']:.3f} ms")
     say("numbers", f"{tag} peak device memory of the warm run "
         f"{main['peak'] / 2**20:.1f} MiB (torch.cuda.max_memory_allocated)")
-    kernels = []
-    for name, short, err in (("wavefront_fill", "fill", fill_err),
-                             ("traceback_walk", "walk", walk_err)):
-        kernels.append({"name": name, **KERNELS[name],
-                        "launches": main["launches"][name], "max_abs_err": err,
-                        "ms": main_shape[f"{short}_ms"],
-                        "plain_ms": main_shape[f"{short}_plain_ms"]})
+    lt = long["timer"]
+    p1, p2, wk = (lt.seconds(n) for n in
+                  ("segment_pass1", "segment_bp", "traceback_walk_segment"))
+    say("numbers", f"{tag} long phase: {long['n']} pairs in {lt.wall:.2f} s wall; the "
+        f"{N_LONG}-pair group {long['group']} in {long['segments']} segments of "
+        f"{long['seg_diagonals']} diagonals: pass 1 {p1 * 1e3:.1f} ms over "
+        f"{lt.count('segment_pass1')} launches, recompute with bp {p2 * 1e3:.1f} ms "
+        f"over {lt.count('segment_bp')}, segment walk {wk * 1e3:.1f} ms over "
+        f"{lt.count('traceback_walk_segment')} (CUDA events); "
+        f"{2 * long['true_cells'] / (p1 + p2) / 1e9:.2f} Gcells/s over "
+        f"{long['true_cells']} true cells counted once a sweep; peak device memory "
+        f"{long['peak'] / 2**20:.1f} MiB")
+    cell = long["cell"]
+    say("numbers", f"{tag} long phase: the same four pairs through the full-bp fill + "
+        f"walk {long['full_wall']:.2f} s wall, viterbi_scores_batch over the "
+        f"phase's pairs {long['score_wall']:.2f} s wall")
+
+    def entry(name, launches, err, ms, plain_ms, bnd):
+        return {"name": name, **KERNELS[name], "launches": launches,
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": None}
+
+    kernels = [
+        entry("wavefront_fill", main["launches"]["wavefront_fill"], errs["fill"],
+              main_shape["fill_ms"], main_shape["fill_plain_ms"],
+              main_shape["fill_bound"]),
+        entry("traceback_walk", main["launches"]["traceback_walk"], errs["walk"],
+              main_shape["walk_ms"], main_shape["walk_plain_ms"],
+              main_shape["walk_bound"]),
+        entry("wavefront_segment", long["launches"]["wavefront_segment"],
+              max(errs["segment"], cell["err"]), cell["segment_bp_ms"],
+              cell["segment_plain_ms"], cell["segment_bound"]),
+        entry("wavefront_score", long["launches"]["wavefront_score"],
+              max(errs["segment"], score["err"]), score["ms"], score["plain_ms"],
+              score["bound"]),
+        entry("traceback_walk_segment", long["launches"]["traceback_walk_segment"],
+              max(errs["segment_walk"], cell["walk_err"]), cell["walk_ms"],
+              cell["walk_plain_ms"], cell["walk_bound"]),
+    ]
+    for e in kernels:
+        say("numbers", f"{tag} {e['name']}: {e['ms']:.3f} ms, bound {e['bound_ms']:.3g} "
+            f"ms by {e['bound_by']} ({e['bound_ms'] / e['ms']:.3%} of it reached), "
+            f"plain {e['plain_ms']:.1f} ms, no library call computes it")
     print(json.dumps({"kernels": kernels}), flush=True)
+
+
+def run_longpair(dev, card, nt):
+    """One synthetic pair of nt nt through the CLI's alignpair on the card."""
+    (a, b), = make_pairs(1, np.random.default_rng(3), length_mix=[(nt, 1.0)])
+    aln = alignment_params()
+    k = int(aln.gap.len)
+    C = len(b) + k
+    Dtot = len(a) + len(b) + 2 * k - 1
+    T = min(Dtot, longseq.seg_diagonals_for(1, C))
+    torch.cuda.reset_peak_memory_stats(dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        src = Path(tmp) / "pair.fasta"
+        out = Path(tmp) / "out.json"
+        src.write_text(f">anc\n{a}\n>des\n{b}\n")
+        t0 = time.perf_counter()
+        with KernelTimer(dev) as timer:
+            rc = cli.main(["alignpair", str(src), "-o", str(out)])
+        wall = time.perf_counter() - t0
+        row = json.loads(out.read_text()) if rc == 0 else None
+    peak = torch.cuda.max_memory_allocated(dev)
+    if rc != 0:
+        raise AssertionError(f"alignpair failed: rc={rc}")
+    _check_rows([("anc", a, "des", b)], [row])
+    t0 = time.perf_counter()
+    score, = score_kernel_scores([(a, b)], aln, dev)
+    score_wall = time.perf_counter() - t0
+    if np.float32(row["score"]) != score:
+        raise AssertionError(f"alignpair's score {row['score']} is not the "
+                             f"score kernel's {score}")
+    p1, p2, wk = (timer.seconds(n) for n in
+                  ("segment_pass1", "segment_bp", "traceback_walk_segment"))
+    cells = len(a) * len(b)
+    say("longpair", f"[{card}] {len(a)} x {len(b)} nt through alignpair: {wall:.2f} s "
+        f"wall, {timer.count('segment_bp')} segments of {T} diagonals, pass 1 "
+        f"{p1:.2f} s, recompute with bp {p2:.2f} s, walk {wk * 1e3:.1f} ms "
+        f"(CUDA events), {2 * cells / (p1 + p2) / 1e9:.2f} Gcells/s over {cells} "
+        f"true cells counted once a sweep, {Dtot / p1 / 1e3:.1f} k diagonals/s in "
+        f"pass 1; peak device memory {peak / 2**20:.1f} MiB; ungaps to its "
+        f"inputs; score {score} equals the score kernel's ({score_wall:.2f} s wall)")
 
 
 def main() -> int:
     dev, card = phase_device()
     phase_build()
     main_shape, fill_err, walk_err = phase_kernels(dev)
+    seg_err, seg_walk_err = phase_segment_kernels(dev)
     main_run = phase_main(dev)
-    phase_numbers(card, main_shape, main_run, fill_err, walk_err)
-    if any(m == "jax" or m.startswith("jax.") for m in sys.modules):
-        raise AssertionError("the port's main path imported jax")
+    long_run = phase_long(dev, main_run["named"])
+    run_longpair(dev, card, LONGPAIR_NT)
+    phase_numbers(card, main_shape, main_run, long_run, score_cell(dev),
+                  {"fill": fill_err, "walk": walk_err, "segment": seg_err,
+                   "segment_walk": seg_walk_err})
+    bad = sorted(m for m in sys.modules
+                 if m.split(".")[0] in ("jax", "jaxlib", "coati_tpu", "bench"))
+    if bad:
+        raise AssertionError(f"the port imported {bad}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

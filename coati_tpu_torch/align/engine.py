@@ -1,12 +1,15 @@
-"""Batch alignment engine: length bucketing and the fused fill + walk step.
+"""Batch alignment engine: length bucketing, the fused fill + walk step, the
+routing of long pairs, and score-only Viterbi.
 
 Counterpart of coati_tpu/align/engine.py. Pairs are bucketed by padded
 shape and chunked by cell count; each chunk runs the Viterbi fill and the
 traceback walk back to back on one stream, the backpointer stack never
 leaves the device, and only the op codes and scores are copied to the host,
-where the aligned strings are built. Every chunk is enqueued before the
-first result is read, so the device works while the host pads the next
-chunk and builds strings.
+where the aligned strings are built. A pair whose backpointer stack would
+pass the budget of align/longseq.py goes, grouped with pairs of similar
+size, through the segmented two-pass path there. Every chunk and then every
+group is enqueued before the first result is read, so the device works
+while the host pads the next chunk and builds strings.
 """
 
 from __future__ import annotations
@@ -15,16 +18,13 @@ import collections
 import dataclasses
 
 import numpy as np
-import torch
 
-from coati_tpu_torch.device import resolve_device
+from coati_tpu_torch.align import longseq
+from coati_tpu_torch.device import download, resolve_device, upload
 from coati_tpu_torch.kernels import traceback_walk as _walk
 from coati_tpu_torch.kernels import wavefront_fill as _fill
+from coati_tpu_torch.kernels import wavefront_score as _score
 from coati_tpu_torch.params import params_from_numpy
-
-# descendants needing more slots than this belong to the segmented long-pair
-# path of the JAX package (coati_tpu/align/longseq.py), not yet ported
-LONG_PAIR_SLOTS = 16512
 
 
 @dataclasses.dataclass
@@ -100,26 +100,26 @@ def fused_align_ops(aseq, bseq, lens_a, lens_b, table, gap_consts, *, k,
                                 max_steps=max_steps)
 
 
-def _upload(x: np.ndarray, dev: torch.device) -> torch.Tensor:
-    t = torch.from_numpy(x)
-    if dev.type == "cuda":
-        return t.pin_memory().to(dev, non_blocking=True)
-    return t
-
-
-def _download(*tensors):
-    """Start the device->host copies; returns (host tensors, event that
-    completes after the last copy, or None on the CPU)."""
-    if tensors[0].device.type != "cuda":
-        return tensors, None
-    hosts = []
-    for t in tensors:
-        host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-        host.copy_(t, non_blocking=True)
-        hosts.append(host)
-    ev = torch.cuda.Event()
-    ev.record(torch.cuda.current_stream(tensors[0].device))
-    return hosts, ev
+def _long_groups(long_pairs, enc_as, enc_bs, k):
+    """Long pairs sorted by size and cut into groups that one segmented
+    sweep takes: a pair joins the group before it while the group is
+    narrower than long_batch_width allows for its widest descendant and the
+    pair is at least 0.7 of the group's first (largest) pair, so padding to
+    the group's maxima wastes less than about half the sweep."""
+    order = sorted(long_pairs, key=lambda i: -(len(enc_as[i]) + len(enc_bs[i])))
+    groups: list[list[int]] = []
+    for idx in order:
+        size = len(enc_as[idx]) + len(enc_bs[idx])
+        if groups:
+            head = groups[-1][0]
+            head_size = len(enc_as[head]) + len(enc_bs[head])
+            nb_max = max(len(enc_bs[i]) for i in groups[-1] + [idx])
+            width = longseq.long_batch_width(nb_max, k)
+            if len(groups[-1]) < width and size >= 0.7 * head_size:
+                groups[-1].append(idx)
+                continue
+        groups.append([idx])
+    return groups
 
 
 def viterbi_align_batch(
@@ -132,6 +132,7 @@ def viterbi_align_batch(
     quantum: int = 96,
     max_batch_cells: int = 1 << 30,
     table_idx=None,
+    long_slots: int | None = None,
     device="cuda",
 ) -> list[AlignResult]:
     """Align many pairs: bucket by padded shape, run the fused fill + walk
@@ -139,7 +140,11 @@ def viterbi_align_batch(
 
     table_idx: optional per-pair index into a stacked table [G, 183, 15],
     folded into the ancestor encoding (enc_a + 183*idx against the
-    flattened [G*183, 15] table)."""
+    flattened [G*183, 15] table).
+
+    long_slots: descendants needing more slots than this take the segmented
+    long-pair path; by default a pair takes it when its backpointer stack
+    would pass longseq.BP_BUDGET_BYTES."""
     dev = resolve_device(device)
     k = int(gap.len)
     table32 = np.asarray(table, dtype=np.float32)
@@ -152,15 +157,13 @@ def viterbi_align_batch(
             for i, a in enumerate(enc_as)
         ]
     params = params_from_numpy(table32, gap, dev)
-    n_rows = params.table.shape[0]
 
     buckets: dict[tuple[int, int], list[int]] = collections.defaultdict(list)
+    long_pairs: list[int] = []
     for idx, (a, b) in enumerate(zip(enc_as, enc_bs)):
-        if len(b) + k > LONG_PAIR_SLOTS:
-            raise NotImplementedError(
-                f"pair {idx}: descendant of {len(b)} nt needs the long-pair "
-                f"path (> {LONG_PAIR_SLOTS} slots), not yet ported to "
-                "coati_tpu_torch")
+        if longseq.is_long_pair(len(a), len(b), k, long_slots):
+            long_pairs.append(idx)
+            continue
         qa = max(_round_up(len(a), quantum), quantum)
         qb = max(_round_up(len(b), quantum), quantum)
         buckets[(qa, qb)].append(idx)
@@ -174,14 +177,19 @@ def viterbi_align_batch(
             aseq, bseq, la, lb = _pad_batch(
                 [enc_as[i] for i in chunk], [enc_bs[i] for i in chunk], quantum
             )
-            if aseq.min() < 0 or aseq.max() >= n_rows or bseq.min() < 0 or bseq.max() > 15:
-                raise ValueError("sequence codes out of range for the table")
+            params.check_codes(aseq, bseq)
             ops, score = fused_align_ops(
-                *(_upload(x, dev) for x in (aseq, bseq, la, lb)),
+                *(upload(x, dev) for x in (aseq, bseq, la, lb)),
                 params.table, params.gap_consts, k=k,
                 max_steps=max(1, int(np.max(la + lb))),
             )
-            inflight.append((chunk, _download(ops, score)))
+            inflight.append((chunk, download(ops, score)))
+
+    # long pairs after the buckets, so the card works on those while the
+    # host pads the groups
+    for grp in _long_groups(long_pairs, enc_as, enc_bs, k):
+        inflight.append((grp, longseq.enqueue_long_group(
+            [enc_as[i] for i in grp], [enc_bs[i] for i in grp], params, dev)))
 
     results: list[AlignResult | None] = [None] * len(enc_as)
     for chunk, ((ops, score), ev) in inflight:
@@ -201,3 +209,41 @@ def viterbi_align_single(enc_a, enc_b, a_str, b_str, table, gap,
     r = viterbi_align_batch([enc_a], [enc_b], [a_str], [b_str], table, gap,
                             device=device)[0]
     return r.seq0, r.seq1, r.score
+
+
+def viterbi_scores_batch(enc_as, enc_bs, table, gap, quantum: int = 96,
+                         max_batch_cells: int = 1 << 30,
+                         device="cuda") -> np.ndarray:
+    """Score-only Viterbi (no traceback storage), O(diagonal) memory a pair:
+    the [n] f32 scores viterbi_align_batch would give, for pairs of any
+    length. Every chunk is enqueued before the first score is read."""
+    dev = resolve_device(device)
+    k = int(gap.len)
+    params = params_from_numpy(table, gap, dev)
+
+    buckets: dict[tuple[int, int], list[int]] = collections.defaultdict(list)
+    for idx, (a, b) in enumerate(zip(enc_as, enc_bs)):
+        qa = max(_round_up(len(a), quantum), quantum)
+        qb = max(_round_up(len(b), quantum), quantum)
+        buckets[(qa, qb)].append(idx)
+
+    inflight = []
+    for (qa, qb), idxs in buckets.items():
+        max_b = max(1, max_batch_cells // ((qa + k) * (qb + k)))
+        for s in range(0, len(idxs), max_b):
+            chunk = idxs[s : s + max_b]
+            aseq, bseq, la, lb = _pad_batch(
+                [enc_as[i] for i in chunk], [enc_bs[i] for i in chunk], quantum
+            )
+            params.check_codes(aseq, bseq)
+            corners = _score.wavefront_score(
+                *(upload(x, dev) for x in (aseq, bseq, la, lb)),
+                params.table, params.gap_consts, k=k)
+            inflight.append((chunk, download(corners)))
+
+    scores = np.zeros(len(enc_as), dtype=np.float32)
+    for chunk, ((corners,), ev) in inflight:
+        if ev is not None:
+            ev.synchronize()
+        scores[chunk] = corners.numpy().max(axis=0)
+    return scores

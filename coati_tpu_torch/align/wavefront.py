@@ -1,7 +1,8 @@
 """Plain PyTorch versions of the marginal Viterbi fill and traceback walk.
 
-Counterpart of coati_tpu/align/wavefront.py (viterbi mode, tropical
-semiring, any gap length k). These are the reference the CUDA kernels in
+Counterpart of coati_tpu/align/wavefront.py (viterbi and score modes,
+tropical semiring, any gap length k, whole matrix or one segment of
+diagonals from a carried ring). These are the reference the CUDA kernels in
 coati_tpu_torch/kernels are held against, and the path the kernel wrappers
 take for tensors on the CPU. They keep the JAX version's layout and f32
 operation order so that corners, backpointers and walks are bit-equal:
@@ -11,11 +12,16 @@ operation order so that corners, backpointers and walks are bit-equal:
   comparands :218-221, the terminal adjustment :253-255;
 - the two margin formulas go + ge*(j-1) and (ng+go) + ge*(i-1) are computed
   in float64 and rounded once to float32. XLA:CPU contracts them into one
-  single-rounded FMA; for these magnitudes the float64 product and sum are
-  exact, so one rounding gives the same value.
+  single-rounded FMA, in the whole-matrix scan and in the segment form
+  alike. The float64 product of an f32 and an integer below 2^24 is exact
+  (48 bits), and so is the sum while it needs at most 53 bits: with the
+  default gap parameters (ge = -0.18, a multiple of 2^-26; go and ng+go
+  near -6.9, multiples of 2^-21) it needs 18 + 26 = 44 bits at i = 165,000
+  and 50 at i = 2^24, so the one rounding to f32 gives the FMA's value.
 
-The backpointer output is [B, Dtot, C] uint8 (pair-major), Dtot = NA+NB+2k-1;
-byte bits 0-1 / 2-3 / 4-5 hold the M / D / I predecessor state.
+The backpointer output is [B, n_steps, C] uint8 (pair-major), row d - d_start
+for diagonal d; the whole matrix has Dtot = NA+NB+2k-1 diagonals. Byte bits
+0-1 / 2-3 / 4-5 hold the M / D / I predecessor state.
 """
 
 from __future__ import annotations
@@ -23,8 +29,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from coati_tpu.align.semiring import gap_constants
-from coati_tpu.constants import F32_LOWEST
+from coati_tpu_torch.align.semiring import gap_constants
+from coati_tpu_torch.constants import F32_LOWEST
 
 LOWEST = float(np.float32(F32_LOWEST))
 
@@ -56,18 +62,32 @@ def argmax_mdi(m, d, i):
     return torch.where(i > best, torch.full_like(code, 2), code)
 
 
-def wavefront_plain(aseq, bseq, lens_a, lens_b, table, gap_consts, *, k: int):
-    """Viterbi fill with packed backpointers, one loop step per anti-diagonal.
+def wavefront_plain(aseq, bseq, lens_a, lens_b, table, gap_consts, *, k: int,
+                    mode: str = "viterbi", d_start: int = 0,
+                    n_steps: int | None = None, ring_init=None,
+                    corner_init=None, return_carry: bool = False):
+    """Viterbi fill, one loop step per anti-diagonal: the whole matrix, or
+    diagonals [d_start, d_start + n_steps) from a carried ring.
 
     aseq [B, NA] int (< table rows), bseq [B, NB] int (< 16), lens [B] int,
-    table [rows, 15] f32, gap_consts [4] f32. Returns ((cM, cD, cI), bp):
-    terminal-adjusted corner scores [B] f32 and bp [B, Dtot, C] uint8."""
+    table [rows, 15] f32, gap_consts [4] f32. mode "viterbi" also returns the
+    packed backpointers bp [B, n_steps, C] uint8, mode "score" None in
+    their place. ring_init [K, 3, B, C] f32 holds diagonals d_start-1 ..
+    d_start-K (K = max(k, 2)), corner_init the raw corners (cM, cD, cI)
+    captured so far; both default to LOWEST. Returns (adj, bp), adj the
+    terminal-adjusted corners [B] f32 (meaningful once every pair's corner
+    diagonal has run); with return_carry (adj, bp, (ring, raw corners)) to
+    start the next segment from."""
+    if mode not in ("viterbi", "score"):
+        raise ValueError(f"mode must be 'viterbi' or 'score', got {mode!r}")
     B, NA = aseq.shape
     NB = bseq.shape[1]
     dev = aseq.device
     R = NA + k
     C = NB + k
     Dtot = R + C - 1
+    if n_steps is None:
+        n_steps = Dtot
     K = max(k, 2)
     ng, gs, go, ge = (gap_consts[q] for q in range(4))
     gek1 = ge * float(k - 1)
@@ -85,14 +105,22 @@ def wavefront_plain(aseq, bseq, lens_a, lens_b, table, gap_consts, *, k: int):
     corner_j = (lens_b.long() + (k - 1))[:, None]
 
     empty = torch.full((B, C), LOWEST, dtype=torch.float32, device=dev)
-    ring = [(empty, empty, empty)] * K  # ring[q] = diagonal d-1-q
-    cM = cD = cI = torch.full((B,), LOWEST, dtype=torch.float32, device=dev)
-    bp = torch.empty((B, Dtot, C), dtype=torch.uint8, device=dev)
+    if ring_init is None:
+        ring = [(empty, empty, empty)] * K  # ring[q] = diagonal d-1-q
+    else:
+        ring = [tuple(ring_init[q, s] for s in range(3)) for q in range(K)]
+    if corner_init is None:
+        cM = cD = cI = torch.full((B,), LOWEST, dtype=torch.float32, device=dev)
+    else:
+        cM, cD, cI = corner_init
+    bp = None
+    if mode == "viterbi":
+        bp = torch.empty((B, n_steps, C), dtype=torch.uint8, device=dev)
     # insert-row margin values and mask depend on j only
     i_marg_j = margin_values(go, ge, j_iota)
     ins_ok_j = (j_iota >= 2 * k - 1) & ((j_iota - (k - 1)) % k == 0)
 
-    for d in range(Dtot):
+    for d in range(d_start, d_start + n_steps):
         prev2 = ring[1]
         prevk = ring[k - 1]
         i_vec = d - j_iota
@@ -136,15 +164,24 @@ def wavefront_plain(aseq, bseq, lens_a, lens_b, table, gap_consts, *, k: int):
 
         ring = [(M, D, I)] + ring[: K - 1]
 
-        bp_m = argmax_mdi((p2M + ng) + ng, p2D + gs, (p2I + gs) + ng)
-        bp_d = argmax_mdi((pkM + ng) + go, pkD + ge, (pkI + gs) + go)
-        bp_i = torch.where(pkMs + go > pkIs + ge, 0, 2).to(torch.uint8)
-        bp[:, d, :] = bp_m | (bp_d << 2) | (bp_i << 4)
+        if bp is not None:
+            bp_m = argmax_mdi((p2M + ng) + ng, p2D + gs, (p2I + gs) + ng)
+            bp_d = argmax_mdi((pkM + ng) + go, pkD + ge, (pkI + gs) + go)
+            bp_i = torch.where(pkMs + go > pkIs + ge, 0, 2).to(torch.uint8)
+            bp[:, d - d_start, :] = bp_m | (bp_d << 2) | (bp_i << 4)
 
-    cMa = (cM + ng) + ng
-    cIa = (cI + gs) + ng
-    cDa = cD + gs
-    return (cMa, cDa, cIa), bp
+    adj = adjust_corners((cM, cD, cI), gap_consts)
+    if return_carry:
+        ring_arr = torch.stack([torch.stack(r, dim=0) for r in ring], dim=0)
+        return adj, bp, (ring_arr, (cM, cD, cI))
+    return adj, bp
+
+
+def adjust_corners(raw, gap_consts):
+    """Terminal-state adjustment of raw corner scores (wavefront.py:253-255)."""
+    cM, cD, cI = raw
+    ng, gs = gap_consts[0], gap_consts[1]
+    return (cM + ng) + ng, cD + gs, (cI + gs) + ng
 
 
 def traceback_plain(bp, corners, lens_a, lens_b, *, k: int, max_steps: int):
@@ -177,3 +214,58 @@ def traceback_plain(bp, corners, lens_a, lens_b, *, k: int, max_steps: int):
         j = torch.where(active, j - dj, j)
         st = torch.where(active, nxt, st)
     return ops, score
+
+
+def walk_init_plain(adj, lens_a, lens_b, *, k: int):
+    """Start of the segmented walk: state [4, B] int32 = each pair's
+    (i, j, st, s) at its corner with no op written, and score [B] f32, from
+    the terminal-adjusted corners adj [3, B]."""
+    cM, cD, cI = adj
+    state = torch.stack([
+        lens_a.to(torch.int32) + (k - 1),
+        lens_b.to(torch.int32) + (k - 1),
+        argmax_mdi(cM, cD, cI).to(torch.int32),
+        torch.zeros_like(lens_a, dtype=torch.int32),
+    ])
+    return state, torch.maximum(cM, torch.maximum(cD, cI))
+
+
+def walk_segment_plain(bp_seg, d0: int, state, ops, *, k: int, start=None):
+    """Advance every pair's backward walk through one segment (counterpart
+    of coati_tpu/align/longseq.py _walk_segment).
+
+    bp_seg [B, T, C] uint8 holds diagonals [d0, d0 + T). A pair walks while
+    its cell's diagonal i + j is at least d0, then parks until the segment
+    below is supplied. Its ops go to ops[s] ([max_steps, B] int8, filled
+    with -1 by the caller), each pair counting its own s, where the
+    reference counts one s for the group and leaves -1 for parked pairs: the
+    op sequences with the -1 dropped are the same. state and ops are
+    updated in place.
+
+    start: on the first call of a walk, (adj, lens_a, lens_b) as
+    walk_init_plain takes them: every pair starts at its corner, whatever
+    state holds. Returns (state, ops, score), score None without start."""
+    B, T, _ = bp_seg.shape
+    max_steps = ops.shape[0]
+    score = None
+    if start is not None:
+        first, score = walk_init_plain(*start, k=k)
+        state.copy_(first)
+    i, j, st, s = (state[q].long() for q in range(4))
+    rows = torch.arange(B, device=bp_seg.device)
+    while True:
+        active = (((i > k - 1) | (j > k - 1)) & (i + j >= d0) & (i + j - d0 < T)
+                  & (s < max_steps))
+        if not bool(active.any()):
+            break
+        code = bp_seg[rows, (i + j - d0).clamp(0, T - 1), j].long()
+        nxt = (code >> (2 * st)) & 3
+        di = torch.where(st == 0, 1, torch.where(st == 1, k, 0))
+        dj = torch.where(st == 0, 1, torch.where(st == 1, 0, k))
+        ops[s[active], rows[active]] = st[active].to(torch.int8)
+        i = torch.where(active, i - di, i)
+        j = torch.where(active, j - dj, j)
+        st = torch.where(active, nxt, st)
+        s = torch.where(active, s + 1, s)
+    state.copy_(torch.stack([i, j, st, s]).to(torch.int32))
+    return state, ops, score

@@ -8,13 +8,40 @@ index to the manifest, so a restarted run skips finished work.
 from __future__ import annotations
 
 import json
+import os
 import sys
 
 import numpy as np
 
-from coati_tpu import utils
-from coati_tpu.batchrun import _load_done, read_pairs_fasta
-from coati_tpu.structs import AlignmentParams, SeqData
+from coati_tpu_torch import utils
+from coati_tpu_torch.io.fasta import read_fasta
+from coati_tpu_torch.structs import AlignmentParams, SeqData
+
+
+def read_pairs_fasta(path: str):
+    """Read a multi-FASTA whose records pair up consecutively
+    (anc0, des0, anc1, des1, ...)."""
+    with open(path) as f:
+        data = read_fasta(f)
+    if data.size() % 2 != 0:
+        raise ValueError("Pair-stream FASTA must contain an even number of sequences.")
+    pairs = []
+    for i in range(0, data.size(), 2):
+        pairs.append(
+            (data.names[i], data.seqs[i], data.names[i + 1], data.seqs[i + 1])
+        )
+    return pairs
+
+
+def _load_done(manifest: str) -> set:
+    done = set()
+    if manifest and os.path.exists(manifest):
+        with open(manifest) as f:
+            for line in f:
+                line = line.strip()
+                if line:
+                    done.add(int(line))
+    return done
 
 
 def batch_align(
@@ -31,14 +58,14 @@ def batch_align(
     model in aln; write one JSON line per pair to out_stream; record
     completed indices in `manifest`. Returns the number of pairs aligned.
 
-    meter: optional coati_tpu.profiling.ThroughputMeter."""
+    meter: optional profiling.ThroughputMeter."""
     from coati_tpu_torch.align.engine import viterbi_align_batch
     from coati_tpu_torch.device import resolve_device
 
     if not aln.is_marginal():
         raise NotImplementedError(
             f"model {aln.model} is not yet ported to coati_tpu_torch "
-            "(the triplet engine runs in coati_tpu)")
+            "(triplet models: ROADMAP.md, Modules to port, item 9)")
     dev = resolve_device(device)
     utils.set_subst(aln)
     done = _load_done(manifest)
@@ -107,7 +134,7 @@ def cmd_batch(argv) -> int:
     """CLI: coati-tpu-torch batch pairs.fasta [-o out.jsonl] [--manifest m.txt]"""
     import argparse
 
-    from coati_tpu.profiling import ThroughputMeter
+    from coati_tpu_torch.profiling import ThroughputMeter
     from coati_tpu_torch.params import alignment_params
 
     p = argparse.ArgumentParser(
@@ -131,7 +158,8 @@ def cmd_batch(argv) -> int:
     args = p.parse_args(argv)
     if args.trace_dir or args.multihost:
         raise NotImplementedError(
-            "--trace-dir and --multihost are not yet ported to coati_tpu_torch")
+            "--trace-dir and --multihost are not yet ported to coati_tpu_torch "
+            "(ROADMAP.md, Modules to port, items 11 and 10)")
 
     aln = alignment_params(args.model, args.br_len, args.omega, args.gap_open,
                            args.gap_extend, args.gap_len)

@@ -11,10 +11,67 @@ from __future__ import annotations
 import argparse
 import sys
 
-from coati_tpu.cli import _add_model_opts, _fill_aln, _positive_float
+from coati_tpu_torch.models.marginal import AmbiguousNucs, MarginalSubst
+from coati_tpu_torch.structs import AlignmentParams
 
 PROG = "coati-tpu-torch"
 NOT_PORTED = ("msa", "sample", "format", "genseed", "version")
+
+
+def _positive_float(s: str) -> float:
+    """CLI11 PositiveNumber check parity (utils.cc:107-131): value > 0."""
+    v = float(s)
+    if not v > 0:
+        raise argparse.ArgumentTypeError(f"{s} is not a positive number")
+    return v
+
+
+def _add_model_opts(p, models_help):
+    p.add_argument("input", help="Input file (FASTA/PHYLIP/JSON accepted)")
+    p.add_argument("-m", "--model", default="mar-mg", help=models_help)
+    p.add_argument("--sub", default="", dest="rate",
+                   help="File with branch lengths and codon subst matrix")
+    p.add_argument("-t", "--time", type=_positive_float, default=0.0133,
+                   dest="br_len", help="Evolutionary time/branch length")
+    p.add_argument("-o", "--output", default="", help="Alignment output file")
+    p.add_argument("-g", "--gap-open", type=_positive_float, default=0.001,
+                   help="Gap opening score")
+    p.add_argument("-e", "--gap-extend", type=_positive_float,
+                   default=1.0 - 1.0 / 6.0, help="Gap extension score")
+    p.add_argument("-w", "--omega", type=_positive_float, default=0.2,
+                   help="Nonsynonymous-synonymous bias")
+    p.add_argument("-p", "--pi", type=float, nargs=4,
+                   default=[0.308, 0.185, 0.199, 0.308],
+                   help="Nucleotide frequencies (A C G T)")
+    p.add_argument("-k", "--gap-len", type=int, default=1, help="Gap unit length")
+    p.add_argument("-x", "--sigma", type=float, nargs=6, default=[0.0] * 6,
+                   help="GTR sigma parameters (AC AG AT CG CT GT)")
+    p.add_argument("-a", "--ambiguous", default="SUM",
+                   type=lambda s: s.upper(), choices=["SUM", "BEST"],
+                   help="Ambiguous nucleotides model")
+    p.add_argument("--marginal-sub", default="SUM",
+                   type=lambda s: s.upper(), choices=["SUM", "MAX"],
+                   help="Marginal substitution option")
+
+
+def _fill_aln(args) -> AlignmentParams:
+    aln = AlignmentParams()
+    aln.data.path = args.input
+    aln.model = args.model
+    aln.rate = getattr(args, "rate", "")
+    aln.br_len = args.br_len
+    aln.output = args.output
+    aln.gap.open = args.gap_open
+    aln.gap.extend = args.gap_extend
+    aln.gap.len = args.gap_len
+    aln.omega = args.omega
+    aln.pi = tuple(args.pi)
+    aln.sigma = tuple(args.sigma)
+    aln.amb = AmbiguousNucs(args.ambiguous)
+    aln.sub = MarginalSubst(getattr(args, "marginal_sub", "SUM"))
+    if hasattr(args, "base_error"):
+        aln.bc_error = args.base_error
+    return aln
 
 
 def _add_device_opt(p) -> None:
@@ -50,7 +107,7 @@ def cmd_alignpair(argv) -> int:
     if not aln.is_marginal():
         raise NotImplementedError(
             f"model {aln.model} is not yet ported to {PROG} "
-            "(the triplet engine runs in coati-tpu)")
+            "(triplet models: ROADMAP.md, Modules to port, item 9)")
     from coati_tpu_torch.driver import marg_alignment
 
     return 0 if marg_alignment(aln, device=args.device) else 1
@@ -74,13 +131,13 @@ def main(argv=None) -> int:
         return 0 if argv else 1
     verb = argv[0]
     if verb in NOT_PORTED:
-        print(f"ERROR: command {verb} is not yet ported to {PROG}; "
-              f"use coati-tpu {verb}.", file=sys.stderr)
+        print(f"ERROR: command {verb} is not yet ported to {PROG} "
+              "(ROADMAP.md, Modules to port, item 5).", file=sys.stderr)
         return 1
     if verb not in VERBS:
         print(f"ERROR: command {verb} not supported.", file=sys.stderr)
         return 1
-    from coati_tpu.version import check_version_number
+    from coati_tpu_torch.version import check_version_number
 
     rc = check_version_number()
     if rc != 0:

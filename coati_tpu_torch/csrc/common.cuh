@@ -1,4 +1,6 @@
-// Shared helpers of the marginal Viterbi kernels.
+// Shared helpers of the marginal Viterbi kernels: the semiring zero, the
+// state preference, and the one cell update that the fill, segment and
+// score kernels all run.
 #pragma once
 
 #include <cfloat>
@@ -16,6 +18,94 @@ constexpr float kLowest = -FLT_MAX;
 __device__ __forceinline__ unsigned argmax_mdi(float m, float d, float i) {
   const unsigned code = (d > m) ? 1u : 0u;
   return (i > fmaxf(m, d)) ? 2u : code;
+}
+
+// Gap constants (ng, gs, go, ge) and the products the recurrence uses.
+struct Gap {
+  float ng, gs, go, ge, gek1, gek, ngo;
+};
+
+__device__ __forceinline__ Gap load_gap(const float* __restrict__ g, int k) {
+  Gap c;
+  c.ng = g[0];
+  c.gs = g[1];
+  c.go = g[2];
+  c.ge = g[3];
+  c.gek1 = __fmul_rn(c.ge, (float)(k - 1));
+  c.gek = __fmul_rn(c.ge, (float)k);
+  c.ngo = __fadd_rn(c.ng, c.go);
+  return c;
+}
+
+// Slot of diagonal d in a ring of nring diagonals (d may be negative).
+__device__ __forceinline__ int ring_slot(int d, int nring) {
+  const int r = d % nring;
+  return r < 0 ? r + nring : r;
+}
+
+template <bool kCg>
+__device__ __forceinline__ float ring_load(const float* p) {
+  return kCg ? __ldcg(p) : *p;
+}
+
+// Cell (i, j) of one pair's matrix, on diagonal d = i + j, from the ring
+// planes of diagonals d-2 (r2) and d-k (rk), each M, D, I planes of C slots.
+// a and b are the pair's sequences, tab the [rows, 15] table. Writes M, D, I
+// and returns the packed backpointer byte. Every add is the reference's, in
+// its order (coati_tpu/align/wavefront.py:182-195); maxima nest as
+// fmaxf(fmaxf(a, b), c); the backpointers use the comparands of :218-220;
+// the two margin formulas are one explicitly rounded FMA each, as XLA:CPU
+// computes them (:154, :160). Predecessors left of or above the matrix hold
+// LOWEST, as the reference's shifted-in slots do. Compile with -fmad=false.
+// kCg: read the ring past L1 (ld.global.cg), for a ring that blocks on other
+// SMs write.
+template <bool kCg = false>
+__device__ __forceinline__ uint8_t cell_update(
+    int i, int j, int k, int C, const float* r2, const float* rk,
+    const int32_t* __restrict__ a, const int32_t* __restrict__ b,
+    const float* tab, const Gap& g, float& M, float& D, float& I) {
+  const bool diag = i >= 1 && j >= 1;  // (i-1, j-1)
+  const bool up = i >= k;              // (i-k, j)
+  const bool left = j >= k;            // (i, j-k)
+  const float p2M = diag ? ring_load<kCg>(r2 + j - 1) : kLowest;
+  const float p2D = diag ? ring_load<kCg>(r2 + C + j - 1) : kLowest;
+  const float p2I = diag ? ring_load<kCg>(r2 + 2 * C + j - 1) : kLowest;
+  const float pkM = up ? ring_load<kCg>(rk + j) : kLowest;
+  const float pkD = up ? ring_load<kCg>(rk + C + j) : kLowest;
+  const float pkI = up ? ring_load<kCg>(rk + 2 * C + j) : kLowest;
+  const float pkMs = left ? ring_load<kCg>(rk + j - k) : kLowest;
+  const float pkIs = left ? ring_load<kCg>(rk + 2 * C + j - k) : kLowest;
+
+  // partial sums shared by the recurrence and the backpointer comparands
+  const float m2m0 = __fadd_rn(__fadd_rn(p2M, g.ng), g.ng);
+  const float d2m0 = __fadd_rn(p2D, g.gs);
+  const float i2m0 = __fadd_rn(__fadd_rn(p2I, g.gs), g.ng);
+  const float m2d0 = __fadd_rn(__fadd_rn(pkM, g.ng), g.go);
+  const float i2d0 = __fadd_rn(__fadd_rn(pkI, g.gs), g.go);
+  const float m2i0 = __fadd_rn(pkMs, g.go);
+
+  if (up && left) {
+    // code 15 ('-') has no column: the reference's one-hot sum gives 0
+    const int code = b[j - k];
+    const float sub = code < 15 ? tab[a[i - k] * 15 + code] : 0.0f;
+    M = fmaxf(fmaxf(__fadd_rn(m2m0, sub), __fadd_rn(d2m0, sub)),
+              __fadd_rn(i2m0, sub));
+    D = fmaxf(fmaxf(__fadd_rn(m2d0, g.gek1), __fadd_rn(pkD, g.gek)),
+              __fadd_rn(i2d0, g.gek1));
+    I = fmaxf(__fadd_rn(m2i0, g.gek1), __fadd_rn(pkIs, g.gek));
+  } else {  // margins (wavefront.py:141-161)
+    M = (i == k - 1 && j == k - 1) ? 0.0f : kLowest;
+    D = (j == k - 1 && i >= 2 * k - 1 && (i - (k - 1)) % k == 0)
+            ? __fmaf_rn(g.ge, (float)i - 1.0f, g.ngo)
+            : kLowest;
+    I = (i == k - 1 && j >= 2 * k - 1 && (j - (k - 1)) % k == 0)
+            ? __fmaf_rn(g.ge, (float)j - 1.0f, g.go)
+            : kLowest;
+  }
+  const unsigned bm = argmax_mdi(m2m0, d2m0, i2m0);
+  const unsigned bd = argmax_mdi(m2d0, __fadd_rn(pkD, g.ge), i2d0);
+  const unsigned bi = (m2i0 > __fadd_rn(pkIs, g.ge)) ? 0u : 2u;
+  return (uint8_t)(bm | (bd << 2) | (bi << 4));
 }
 
 }  // namespace coati

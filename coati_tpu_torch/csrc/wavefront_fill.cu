@@ -21,12 +21,8 @@
 // it fits. The backpointer stores of a diagonal are contiguous bytes. Many
 // pairs per launch keep the SMs busy while each block waits at its barrier.
 //
-// Numerics: bit-equal to the XLA:CPU reference. Built with -fmad=false,
-// every add is the reference's, in its order (wavefront.py:182-195), maxima
-// nest as fmaxf(fmaxf(a, b), c), backpointers use the comparands of
-// wavefront.py:218-220 with strict '>' tie-breaks. The two margin formulas
-// go + ge*(j-1) and (ng+go) + ge*(i-1) are one explicitly rounded FMA each,
-// because that is what XLA:CPU computes for them.
+// Numerics: bit-equal to the XLA:CPU reference. The cell update is
+// common.cuh's cell_update, shared with the segment and score kernels.
 //
 // Layout: aseq [B, NA] int32 (< rows), bseq [B, NB] int32 (< 16), lens [B] int32, table
 // [table_len / 15, 15] f32, gap_consts [4] f32 = (ng, gs, go, ge).
@@ -38,9 +34,6 @@
 #include "common.cuh"
 
 namespace {
-
-using coati::argmax_mdi;
-using coati::kLowest;
 
 template <bool kRingShared, bool kTableShared>
 __global__ void wavefront_fill_kernel(
@@ -65,11 +58,7 @@ __global__ void wavefront_fill_kernel(
     __syncthreads();
   }
 
-  const float ng = gap_consts[0], gs = gap_consts[1];
-  const float go = gap_consts[2], ge = gap_consts[3];
-  const float gek1 = __fmul_rn(ge, (float)(k - 1));
-  const float gek = __fmul_rn(ge, (float)k);
-  const float ngo = __fadd_rn(ng, go);
+  const coati::Gap g = coati::load_gap(gap_consts, k);
   const int rows = lens_a[p] + k;  // true matrix: 0 <= i < rows
   const int cols = lens_b[p] + k;  //              0 <= j < cols
   const int32_t* a = aseq + (size_t)p * NA;
@@ -85,60 +74,18 @@ __global__ void wavefront_fill_kernel(
     const int j_hi = min(d, cols - 1);
     for (int j = j_lo + threadIdx.x; j <= j_hi; j += blockDim.x) {
       const int i = d - j;
-      // predecessors (i-1, j-1), (i-k, j), (i, j-k); cells left of or above
-      // the matrix hold LOWEST, as the reference's shifted-in slots do
-      const bool diag = i >= 1 && j >= 1;
-      const bool up = i >= k;
-      const bool left = j >= k;
-      const float p2M = diag ? r2[j - 1] : kLowest;
-      const float p2D = diag ? r2[C + j - 1] : kLowest;
-      const float p2I = diag ? r2[2 * C + j - 1] : kLowest;
-      const float pkM = up ? rk[j] : kLowest;
-      const float pkD = up ? rk[C + j] : kLowest;
-      const float pkI = up ? rk[2 * C + j] : kLowest;
-      const float pkMs = left ? rk[j - k] : kLowest;
-      const float pkIs = left ? rk[2 * C + j - k] : kLowest;
-
-      // partial sums shared by the recurrence and the backpointer comparands
-      const float m2m0 = __fadd_rn(__fadd_rn(p2M, ng), ng);
-      const float d2m0 = __fadd_rn(p2D, gs);
-      const float i2m0 = __fadd_rn(__fadd_rn(p2I, gs), ng);
-      const float m2d0 = __fadd_rn(__fadd_rn(pkM, ng), go);
-      const float i2d0 = __fadd_rn(__fadd_rn(pkI, gs), go);
-      const float m2i0 = __fadd_rn(pkMs, go);
-
       float M, D, I;
-      if (up && left) {
-        // code 15 ('-') has no column: the reference's one-hot sum gives 0
-        const int code = b[j - k];
-        const float sub = code < 15 ? tab[a[i - k] * 15 + code] : 0.0f;
-        M = fmaxf(fmaxf(__fadd_rn(m2m0, sub), __fadd_rn(d2m0, sub)),
-                  __fadd_rn(i2m0, sub));
-        D = fmaxf(fmaxf(__fadd_rn(m2d0, gek1), __fadd_rn(pkD, gek)),
-                  __fadd_rn(i2d0, gek1));
-        I = fmaxf(__fadd_rn(m2i0, gek1), __fadd_rn(pkIs, gek));
-      } else {  // margins (wavefront.py:141-161)
-        M = (i == k - 1 && j == k - 1) ? 0.0f : kLowest;
-        D = (j == k - 1 && i >= 2 * k - 1 && (i - (k - 1)) % k == 0)
-                ? __fmaf_rn(ge, (float)i - 1.0f, ngo)
-                : kLowest;
-        I = (i == k - 1 && j >= 2 * k - 1 && (j - (k - 1)) % k == 0)
-                ? __fmaf_rn(ge, (float)j - 1.0f, go)
-                : kLowest;
-      }
+      const uint8_t code =
+          coati::cell_update(i, j, k, C, r2, rk, a, b, tab, g, M, D, I);
       cur[j] = M;
       cur[C + j] = D;
       cur[2 * C + j] = I;
-
-      const unsigned bm = argmax_mdi(m2m0, d2m0, i2m0);
-      const unsigned bd = argmax_mdi(m2d0, __fadd_rn(pkD, ge), i2d0);
-      const unsigned bi = (m2i0 > __fadd_rn(pkIs, ge)) ? 0u : 2u;
-      bpp[(size_t)d * C + j] = (uint8_t)(bm | (bd << 2) | (bi << 4));
+      bpp[(size_t)d * C + j] = code;
 
       if (d == d_last) {  // the corner is the last diagonal's only cell
-        corners[p] = __fadd_rn(__fadd_rn(M, ng), ng);
-        corners[B + p] = __fadd_rn(D, gs);
-        corners[2 * B + p] = __fadd_rn(__fadd_rn(I, gs), ng);
+        corners[p] = __fadd_rn(__fadd_rn(M, g.ng), g.ng);
+        corners[B + p] = __fadd_rn(D, g.gs);
+        corners[2 * B + p] = __fadd_rn(__fadd_rn(I, g.gs), g.ng);
       }
     }
     __syncthreads();

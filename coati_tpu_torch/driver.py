@@ -5,9 +5,9 @@ from __future__ import annotations
 
 import sys
 
-from coati_tpu import utils
-from coati_tpu.io import read_input, write_output
-from coati_tpu.structs import AlignmentParams
+from coati_tpu_torch import utils
+from coati_tpu_torch.io import read_input, write_output
+from coati_tpu_torch.structs import AlignmentParams
 
 
 def _viterbi_align(aln: AlignmentParams, device) -> None:
@@ -30,7 +30,7 @@ def marg_alignment(aln: AlignmentParams, device="cuda") -> bool:
     utils.set_subst(aln)
 
     if aln.score:
-        from coati_tpu.align.score import alignment_score
+        from coati_tpu_torch.align.score import alignment_score
 
         print(f"{alignment_score(aln, aln.subst_matrix):g}")
         return True

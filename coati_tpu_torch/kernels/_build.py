@@ -40,6 +40,7 @@ BUILD_DIR = build_dir()
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
+    "--threads=0",  # the sources compile side by side
 )
 
 _P = ctypes.c_void_p
@@ -50,6 +51,15 @@ SIGNATURES = {
     "coati_wavefront_fill": [_P] * 9 + [_I] * 8 + [_P],
     # bp cM cD cI lens_a lens_b ops score, B Dtot C k max_steps, stream
     "coati_traceback_walk": [_P] * 8 + [_I] * 5 + [_P],
+    # aseq bseq lens_a lens_b table gap ring_in corners_in ring_out corners_out
+    # adj ring_scratch bp sync, B NA NB k d0 T ring_shared want_bp
+    # blocks_per_pair threads, stream
+    "coati_wavefront_segment": [_P] * 14 + [_I] * 10 + [_P],
+    # aseq bseq lens_a lens_b table gap adj ring_scratch sync,
+    # B NA NB k ring_shared blocks_per_pair threads, stream
+    "coati_wavefront_score": [_P] * 9 + [_I] * 7 + [_P],
+    # bp adj lens_a lens_b score state ops, B T C k d0 max_steps, stream
+    "coati_traceback_walk_segment": [_P] * 7 + [_I] * 6 + [_P],
 }
 
 _lib = None

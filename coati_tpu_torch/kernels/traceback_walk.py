@@ -1,18 +1,24 @@
-"""Wrapper of the traceback walk kernel (csrc/traceback_walk.cu).
+"""Wrappers of the traceback walk kernels (csrc/traceback_walk.cu).
 
-Counterpart of coati_tpu/align/wavefront.py traceback_ops_impl. CPU tensors
-take the plain PyTorch version (align/wavefront.py traceback_plain); CUDA
-tensors launch the kernel or raise.
+Counterparts of coati_tpu/align/wavefront.py traceback_ops_impl (the walk
+over a whole backpointer stack) and coati_tpu/align/longseq.py
+_walk_segment (the walk of long pairs, one segment at a time). CPU tensors
+take the plain PyTorch versions (align/wavefront.py traceback_plain,
+walk_segment_plain); CUDA tensors launch the kernels or raise.
 """
 
 from __future__ import annotations
 
 import torch
 
-from coati_tpu_torch.align.wavefront import traceback_plain
+from coati_tpu_torch.align.wavefront import (
+    traceback_plain,
+    walk_segment_plain,
+)
 from coati_tpu_torch.kernels import _build
 
 LAUNCHES = 0  # kernel launches made by traceback_walk
+SEGMENT_LAUNCHES = 0  # kernel launches made by walk_segment
 
 
 def _check(bp, corners, lens_a, lens_b):
@@ -60,3 +66,62 @@ def traceback_walk(bp, corners, lens_a, lens_b, *, k: int, max_steps: int):
     _build.check(rc, "traceback_walk")
     LAUNCHES += 1
     return ops, score
+
+
+def _check_start(start, B, dev):
+    adj, lens_a, lens_b = start
+    if adj.dtype != torch.float32 or tuple(adj.shape) != (3, B) or not adj.is_contiguous():
+        raise ValueError(f"adj must be contiguous f32 [3, {B}], got "
+                         f"{adj.dtype} {tuple(adj.shape)}")
+    for name, t in (("lens_a", lens_a), ("lens_b", lens_b)):
+        if t.dtype != torch.int32 or tuple(t.shape) != (B,) or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous int32 [{B}]")
+    for name, t in (("adj", adj), ("lens_a", lens_a), ("lens_b", lens_b)):
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, bp_seg on {dev}")
+
+
+def walk_segment(bp_seg, d0: int, state, ops, *, k: int, start=None):
+    """Advance every pair's walk through the segment bp_seg [B, T, C] uint8
+    of diagonals [d0, d0 + T), as walk_segment_plain does: state [4, B] int32
+    = each pair's (i, j, st, s) and ops [max_steps, B] int8 are updated in
+    place. The segments are supplied last to first.
+
+    start: on the first launch of a walk, (adj [3, B] f32 terminal-adjusted
+    corners, lens_a, lens_b): every pair starts at its corner with no op
+    written, whatever state holds. Returns (state, ops, score): score [B]
+    f32 = max of the corners with start, else None."""
+    global SEGMENT_LAUNCHES
+    if bp_seg.dtype != torch.uint8 or bp_seg.dim() != 3 or not bp_seg.is_contiguous():
+        raise ValueError(f"bp_seg must be contiguous [B, T, C] uint8, got "
+                         f"{tuple(bp_seg.shape)} {bp_seg.dtype}")
+    B, T, C = bp_seg.shape
+    dev = bp_seg.device
+    for name, t, dtype, shape in (("state", state, torch.int32, (4, B)),
+                                  ("ops", ops, torch.int8, (ops.shape[0], B))):
+        if t.dtype != dtype or tuple(t.shape) != shape or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous {dtype} {shape}, got "
+                             f"{t.dtype} {tuple(t.shape)}")
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, bp_seg on {dev}")
+    if start is not None:
+        _check_start(start, B, dev)
+    if dev.type == "cpu":
+        return walk_segment_plain(bp_seg, d0, state, ops, k=k, start=start)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    score = None
+    first = (None, None, None, None)
+    if start is not None:
+        score = torch.empty((B,), dtype=torch.float32, device=dev)
+        first = tuple(t.data_ptr() for t in (*start, score))
+    lib = _build.load()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.coati_traceback_walk_segment(
+            bp_seg.data_ptr(), *first, state.data_ptr(), ops.data_ptr(),
+            B, T, C, k, d0, ops.shape[0], stream,
+        )
+    _build.check(rc, "walk_segment")
+    SEGMENT_LAUNCHES += 1
+    return state, ops, score

@@ -1,4 +1,5 @@
-"""Model parameters carried from the JAX package's numpy arrays to tensors."""
+"""Model parameters and carried state as tensors, from numpy arrays in the
+JAX package's layout."""
 
 from __future__ import annotations
 
@@ -7,9 +8,9 @@ import dataclasses
 import numpy as np
 import torch
 
-from coati_tpu import constants as C
-from coati_tpu import utils
-from coati_tpu.structs import AlignmentParams, GapParams
+from coati_tpu_torch import constants as C
+from coati_tpu_torch import utils
+from coati_tpu_torch.structs import AlignmentParams, GapParams
 from coati_tpu_torch.align.wavefront import gap_consts_array
 
 
@@ -18,6 +19,13 @@ class Params:
     table: torch.Tensor  # [rows, 15] f32, rows = 183 * G
     gap_consts: torch.Tensor  # [4] f32: (no_gap, gap_stop, gap_open, gap_extend)
     k: int  # gap unit length
+
+    def check_codes(self, aseq: np.ndarray, bseq: np.ndarray) -> None:
+        """Raise unless the ancestor codes index the table's rows and the
+        descendant codes are nucleotide codes; the kernels do not check."""
+        if (aseq.min() < 0 or aseq.max() >= self.table.shape[0]
+                or bseq.min() < 0 or bseq.max() > 15):
+            raise ValueError("sequence codes out of range for the table")
 
 
 def params_from_numpy(table, gap, device) -> Params:
@@ -45,11 +53,35 @@ def alignment_params(model: str = "mar-mg", br_len: float = C.DEFAULT_BR_LEN,
                      gap_open: float = C.DEFAULT_GAP_OPEN,
                      gap_extend: float = C.DEFAULT_GAP_EXTEND,
                      gap_len: int = C.DEFAULT_GAP_LEN) -> AlignmentParams:
-    """The JAX package's AlignmentParams for one model and gap setting, with
-    its marginal table resolved into .subst_matrix (coati_tpu.utils.set_subst;
-    None for a triplet model)."""
+    """AlignmentParams for one model and gap setting, with its marginal
+    table resolved into .subst_matrix (utils.set_subst; None for a triplet
+    model)."""
     aln = AlignmentParams(model=model, br_len=br_len, omega=omega,
                           gap=GapParams(len=gap_len, open=gap_open,
                                         extend=gap_extend))
     utils.set_subst(aln)
     return aln
+
+
+def carry_from_numpy(ring, corners, device):
+    """The segment carry of the JAX package's _segment as the port's:
+    (ring [K, 3, B, C] f32 with ring[q] = diagonal d0 - 1 - q, raw corners
+    (cM, cD, cI) each [B]) -> (ring tensor, corners [3, B] tensor) on
+    `device`. The port keeps the reference's ring order and shape, so the
+    arrays cross as they are."""
+    ring = np.array(ring, dtype=np.float32, order="C")  # a writable copy
+    if ring.ndim != 4 or ring.shape[1] != 3:
+        raise ValueError(f"ring must be [K, 3, B, C], got {ring.shape}")
+    raw = np.stack([np.asarray(c, dtype=np.float32) for c in corners])
+    if raw.shape != (3, ring.shape[2]):
+        raise ValueError(f"corners must be three [{ring.shape[2]}] arrays, "
+                         f"got {raw.shape}")
+    return torch.from_numpy(ring).to(device), torch.from_numpy(raw).to(device)
+
+
+def carry_to_numpy(carry):
+    """The port's segment carry as the JAX package's _segment takes it:
+    (ring [K, 3, B, C], (cM, cD, cI)) numpy arrays."""
+    ring, corners = carry
+    raw = corners.cpu().numpy()
+    return ring.cpu().numpy(), (raw[0], raw[1], raw[2])

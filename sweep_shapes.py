@@ -1,0 +1,127 @@
+#!/usr/bin/env python3
+"""Time the port's sweep kernel (coati_tpu_torch/csrc/wavefront_segment.cu)
+at several launch shapes, and hold every shape to the one-block result.
+
+    python3 sweep_shapes.py      # from the repository root; needs one card
+
+For square random pairs of several sizes, alone and in a group of four, and
+for several (blocks a pair, threads a block), it runs one 4,000-diagonal
+segment with backpointers in the middle of the matrix, from the carry of a
+score-only sweep down to it. Each shape's backpointers on the
+pairs' true cells, ring and corners must be bit-equal to those of one block
+a pair (any difference raises); then the launch is timed, in microseconds a
+diagonal. Last, the whole score-only sweep with the shape the wrapper
+chooses (kernels/wavefront_segment.py sweep_shape, whose rule was set from
+this table). It stands in its own (blocks, threads) for sweep_shape while it
+measures. CUDA events, mean of 2 launches after a warm-up.
+"""
+
+from __future__ import annotations
+
+import subprocess
+import sys
+from pathlib import Path
+
+sys.path.insert(0, str(Path(__file__).resolve().parent))
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+
+from coati_tpu_torch.kernels import wavefront_score, wavefront_segment  # noqa: E402
+from coati_tpu_torch.params import alignment_params, params_from_numpy  # noqa: E402
+
+SEGMENT = 4000  # diagonals of the timed segment
+SIZES = ((8_000, 1), (32_000, 4), (32_000, 1), (160_000, 1))  # (nt, pairs)
+BLOCKS = (1, 4, 8, 16, 33, 132)
+THREADS = (1024, 512)
+
+
+def elapsed_ms(fn, reps: int = 2) -> float:
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def true_cells(n, d0, T, dev):
+    """[T, n + 1] mask of the cells (i, j >= 1) of an n x n pair's matrix on
+    diagonals [d0, d0 + T): the kernel writes backpointers nowhere else."""
+    d = (d0 + torch.arange(T, device=dev))[:, None]
+    j = torch.arange(n + 1, device=dev)[None, :]
+    i = d - j
+    return (i >= 1) & (i <= n) & (j >= 1)
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        raise SystemExit("sweep_shapes: needs a CUDA device")
+    dev = torch.device("cuda:0")
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()[0].strip()
+    print(card, flush=True)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    aln = alignment_params()
+    p = params_from_numpy(aln.subst_matrix, aln.gap, dev)
+    chosen = wavefront_segment.sweep_shape
+    for n, B in SIZES:
+        rng = np.random.default_rng(0)
+        a = torch.from_numpy(rng.integers(0, 183, (B, n)).astype(np.int32)).to(dev)
+        b = torch.from_numpy(rng.integers(0, 4, (B, n)).astype(np.int32)).to(dev)
+        lens = torch.full((B,), n, dtype=torch.int32, device=dev)
+        args = (a, b, lens, lens, p.table, p.gap_consts)
+        d0 = n - SEGMENT // 2
+        mask = true_cells(n, d0, SEGMENT, dev)
+
+        def segment(carry):
+            return wavefront_segment.wavefront_segment(
+                *args, carry, d0, k=1, n_steps=SEGMENT, want_bp=True)
+
+        try:
+            # the carry entering diagonal d0, swept with the chosen shape
+            _, _, carry = wavefront_segment.wavefront_segment(
+                *args, wavefront_segment.empty_carry(B, n + 1, 1, dev), 0, k=1,
+                n_steps=d0, want_bp=False)
+            wavefront_segment.sweep_shape = lambda *_: (1, 1024)
+            _, want_bp, (want_ring, want_corners) = segment(carry)
+            want_bp = want_bp[:, mask]
+            for threads in THREADS:
+                for blocks in BLOCKS:
+                    if blocks * B > sms:
+                        continue
+                    wavefront_segment.sweep_shape = lambda *_, s=(blocks, threads): s
+                    _, bp, (ring, corners) = segment(carry)
+                    same = (torch.equal(bp[:, mask], want_bp)
+                            and torch.equal(ring, want_ring)
+                            and torch.equal(corners, want_corners))
+                    del bp, ring, corners
+                    if not same:
+                        raise AssertionError(
+                            f"{B} x {n} nt, {blocks} x {threads} threads a pair "
+                            f"differs from one block of 1,024 threads a pair")
+                    ms = elapsed_ms(lambda: wavefront_segment.wavefront_segment(
+                        *args, carry, d0, k=1, n_steps=SEGMENT, want_bp=True,
+                        want_carry=False))
+                    print(f"[{card}] {B} x {n} nt, {blocks} x {threads} threads a pair: "
+                          f"bit-equal to one block a pair; segment with bp "
+                          f"{ms:.1f} ms = {ms / SEGMENT * 1e3:.2f} us a diagonal",
+                          flush=True)
+        finally:
+            wavefront_segment.sweep_shape = chosen
+        del want_bp, want_ring, want_corners, carry
+        blocks, threads = chosen(B, n + 1, dev)
+        ms = elapsed_ms(lambda: wavefront_score.wavefront_score(*args, k=1))
+        print(f"[{card}] {B} x {n} nt, chosen {blocks} x {threads}: score-only sweep "
+              f"{ms:.1f} ms = {B * n * n / ms / 1e6:.2f} Gcells/s, "
+              f"{ms / (2 * n) * 1e3:.2f} us a diagonal", flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,7 +1,9 @@
 """coati-tpu-torch CLI against coati-tpu's, byte for byte, on the CPU; the
-port's import isolation from jax; and the no-silent-fallback guard."""
+port's import isolation from jax and from the JAX package; and the
+no-silent-fallback guard."""
 
 import json
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -86,18 +88,25 @@ def test_not_ported_verbs_and_models_exit_1(tmp_path, capsys):
 
 
 def test_port_never_imports_jax(tmp_path):
-    """Importing the port and aligning one pair on the CPU leaves jax out of
-    sys.modules (a subprocess, since this test process imports jax)."""
+    """Importing the port, aligning one pair with alignpair and a stream with
+    batch on the CPU leaves jax, the JAX package coati_tpu and bench out of
+    sys.modules (a subprocess, since this test process imports them)."""
     src = tmp_path / "pair.fasta"
     src.write_text(PAIR)
+    pairs = tmp_path / "pairs.fasta"
+    pairs.write_text(PAIRS)
     out = tmp_path / "out.fasta"
+    rows = tmp_path / "out.jsonl"
     code = (
         "import sys\n"
         "import coati_tpu_torch\n"
         "from coati_tpu_torch.cli import main\n"
         f"rc = main(['alignpair', {str(src)!r}, '--device', 'cpu', '-o', {str(out)!r}])\n"
         "assert rc == 0, rc\n"
-        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.'))\n"
+        f"rc = main(['batch', {str(pairs)!r}, '--device', 'cpu', '-o', {str(rows)!r}])\n"
+        "assert rc == 0, rc\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'coati_tpu', 'bench'))\n"
         "assert not bad, bad\n"
         "print('ok')\n"
     )
@@ -106,6 +115,59 @@ def test_port_never_imports_jax(tmp_path):
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip() == "ok"
     assert "CT----ATAGTG" in out.read_text()
+    assert len(rows.read_text().splitlines()) == 4
+
+
+def test_port_sources_import_nothing_of_jax_or_the_jax_package():
+    """No *.py of the port, and not chip_smoke.py, imports jax, coati_tpu or
+    bench, by an import statement or by name through importlib. Comments and
+    docstrings that name the counterpart file are fine."""
+    banned = r"(jax|jaxlib|bench|coati_tpu)"
+    statement = re.compile(rf"^\s*(from|import)\s+{banned}(\.|\s|,|$)")
+    by_name = re.compile(rf"(import_module|__import__)\(\s*['\"]{banned}(\.|['\"])")
+    files = sorted((REPO / "coati_tpu_torch").rglob("*.py")) + [
+        REPO / "chip_smoke.py", REPO / "sweep_shapes.py"]
+    assert len(files) > 25
+    bad = []
+    for path in files:
+        for n, line in enumerate(path.read_text().splitlines(), 1):
+            if statement.search(line) or by_name.search(line):
+                bad.append(f"{path.relative_to(REPO)}:{n}: {line.strip()}")
+    assert not bad, bad
+    assert statement.search("from coati_tpu.utils import x")
+    assert statement.search("    import jax")
+    assert not statement.search("from coati_tpu_torch.utils import x")
+
+
+@pytest.mark.parametrize("verb,out_name", [("alignpair", "out.json"),
+                                           ("alignpair", "out.fasta"),
+                                           ("batch", "out.jsonl")])
+def test_long_route_matches_jax_cli(tmp_path, monkeypatch, verb, out_name):
+    """Pairs forced through the long-pair route of both packages (the JAX
+    package by its slot threshold, the port by its byte budget): the CLIs
+    write the same bytes."""
+    import numpy as np
+
+    import coati_tpu.align.engine as jax_engine
+    from coati_tpu.constants import CODONS61
+    from coati_tpu_torch.align import longseq
+
+    rng = np.random.default_rng(17)
+    records = []
+    for n in range(2 if verb == "batch" else 1):
+        anc = "".join(rng.choice(CODONS61, size=110 + 20 * n))
+        des = anc[:100] + anc[109:250] + "ACGTTT" + anc[250:]
+        records.append(f">a{n}\n{anc}\n>d{n}\n{des}\n")
+    monkeypatch.setattr(jax_engine, "LONG_PAIR_SLOTS", 200)
+    monkeypatch.setattr(longseq, "BP_BUDGET_BYTES", 60_000)
+    calls = []
+    real = longseq.align_long_group
+    monkeypatch.setattr(longseq, "align_long_group",
+                        lambda *a, **kw: calls.append(1) or real(*a, **kw))
+    got_jax, got_torch = _run_both(tmp_path, "long.fasta", "".join(records),
+                                   [verb], out_name)
+    assert calls
+    assert got_jax == got_torch and got_torch
 
 
 def test_cuda_request_without_cuda_raises(tmp_path, monkeypatch, capsys):

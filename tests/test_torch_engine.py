@@ -16,6 +16,7 @@ from coati_tpu.models import marginal_p, mg94_p
 from coati_tpu.structs import GapParams
 from coati_tpu.utils import encode_marginal
 from coati_tpu_torch.align import engine as torch_engine
+from coati_tpu_torch.align import longseq
 from coati_tpu_torch.params import params_from_numpy
 
 PI = (0.308, 0.185, 0.199, 0.308)
@@ -128,13 +129,47 @@ def test_single_matches_jax(mg94_table):
     assert got[1] == "CT----ATAGTG"
 
 
-def test_long_pairs_are_refused(mg94_table):
-    anc = "ATG" * 10
-    des = "A" * (torch_engine.LONG_PAIR_SLOTS + 1)
-    ea, eb = encode_marginal(anc, des)
-    with pytest.raises(NotImplementedError, match="long-pair"):
-        torch_engine.viterbi_align_batch([ea], [eb], [anc], [des], mg94_table,
-                                         GapParams(), device="cpu")
+def _lower_budget(monkeypatch, enc_as, enc_bs):
+    """Lower the backpointer budget so that a pair the CPU can take passes it."""
+    biggest = max(longseq.bp_bytes(len(a), len(b), 1) for a, b in zip(enc_as, enc_bs))
+    monkeypatch.setattr(longseq, "BP_BUDGET_BYTES", biggest // 3)
+    assert any(longseq.is_long_pair(len(a), len(b), 1) for a, b in zip(enc_as, enc_bs))
+
+
+def test_long_pairs_are_refused(mg94_table, monkeypatch):
+    """Only where the device asked for is missing: a long pair for a CUDA
+    device on a host without one raises, and is not aligned on the CPU
+    instead."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    pairs = _pairs(33, 3, 1, iupac=False)
+    enc_as, enc_bs = _encode(pairs)
+    _lower_budget(monkeypatch, enc_as, enc_bs)
+    monkeypatch.setattr(longseq, "align_long_group",
+                        lambda *a, **kw: pytest.fail("the long path ran"))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        torch_engine.viterbi_align_batch(
+            enc_as, enc_bs, [a for a, _ in pairs], [b for _, b in pairs],
+            mg94_table, GapParams(), device="cuda")
+
+
+def test_long_pairs_take_the_segmented_path(mg94_table, monkeypatch):
+    """A pair whose backpointer stack passes the budget is aligned in
+    segments, with the result of the full-backpointer path."""
+    pairs = _pairs(33, 3, 1, iupac=False)
+    enc_as, enc_bs = _encode(pairs)
+    astrs = [a for a, _ in pairs]
+    bstrs = [b for _, b in pairs]
+    whole = torch_engine.viterbi_align_batch(enc_as, enc_bs, astrs, bstrs,
+                                             mg94_table, GapParams(), device="cpu")
+    _lower_budget(monkeypatch, enc_as, enc_bs)
+    calls = []
+    real = longseq.align_long_group
+    monkeypatch.setattr(longseq, "align_long_group",
+                        lambda *a, **kw: calls.append(a[0].shape) or real(*a, **kw))
+    routed = torch_engine.viterbi_align_batch(enc_as, enc_bs, astrs, bstrs,
+                                              mg94_table, GapParams(), device="cpu")
+    assert calls
+    _assert_same(whole, routed)
 
 
 def test_params_from_numpy_round_trips(mg94_table):
@@ -155,6 +190,8 @@ def test_params_from_numpy_round_trips(mg94_table):
 
 
 def test_alignment_params_resolve_the_jax_packages_table():
+    import dataclasses
+
     from coati_tpu.structs import AlignmentParams
     from coati_tpu.utils import set_subst
     from coati_tpu_torch.params import alignment_params
@@ -162,10 +199,12 @@ def test_alignment_params_resolve_the_jax_packages_table():
     want = AlignmentParams()
     set_subst(want)
     got = alignment_params()
-    assert got.gap == want.gap and got.model == "mar-mg"
+    assert dataclasses.asdict(got.gap) == dataclasses.asdict(want.gap)
+    assert got.model == "mar-mg"
     np.testing.assert_array_equal(got.subst_matrix, want.subst_matrix)
     got = alignment_params("mar-mg", 0.05, 0.3, 0.002, 0.9, 3)
-    assert got.gap == GapParams(len=3, open=0.002, extend=0.9)
+    assert dataclasses.asdict(got.gap) == dataclasses.asdict(
+        GapParams(len=3, open=0.002, extend=0.9))
     np.testing.assert_array_equal(
         got.subst_matrix, marginal_p(mg94_p(0.05, 0.3, PI), PI).astype(np.float32))
     assert alignment_params("tri-mg").subst_matrix is None

@@ -1,5 +1,5 @@
-"""Golden results of the JAX reference on main-path pairs, shared with
-chip_smoke.py.
+"""Golden results of the JAX reference on main-path and long-path pairs,
+shared with chip_smoke.py.
 
 tests/data/torch_main_path_golden.json holds, for the first 8 pairs of each
 length class of the main-path batch (bench.py's make_pairs, seed 0), the
@@ -8,9 +8,14 @@ gives on XLA:CPU. This test recomputes them with the JAX package, so the
 file stays the reference's, and holds the port's CPU path to them;
 chip_smoke.py holds the port's CUDA path to the same file.
 
+tests/data/torch_long_path_golden.json holds the same for three pairs of
+2,997 nt (chip_smoke's long_golden_pairs) forced through the long-pair route
+of coati_tpu's viterbi_align_batch with long_slots=LONG_GOLDEN_SLOTS.
+
 Regenerate with: JAX_PLATFORMS=cpu python tests/test_torch_golden.py
 """
 
+import importlib
 import io
 import json
 import sys
@@ -22,7 +27,16 @@ REPO = Path(__file__).resolve().parent.parent
 if str(REPO) not in sys.path:
     sys.path.insert(0, str(REPO))
 
-from chip_smoke import GOLDEN, LENGTH_MIX, golden_record  # noqa: E402
+from chip_smoke import (  # noqa: E402
+    GOLDEN,
+    LENGTH_MIX,
+    LONG_GOLDEN,
+    LONG_GOLDEN_SLOTS,
+    golden_record,
+    long_golden_pairs,
+    long_golden_record,
+    make_pairs,
+)
 
 PER_CLASS = 8
 
@@ -30,8 +44,6 @@ PER_CLASS = 8
 def golden_pairs(seed=0):
     """(indices, named pairs) of the first PER_CLASS pairs of each length
     class in the seed's make_pairs stream."""
-    from bench import make_pairs
-
     rng = np.random.default_rng(seed)
     pairs, by_len = [], {}
     while min((len(by_len.get(L, [])) for L, _ in LENGTH_MIX)) < PER_CLASS:
@@ -43,10 +55,12 @@ def golden_pairs(seed=0):
 
 
 def records_of(batch_align, idx, named, **kw):
-    from coati_tpu.structs import AlignmentParams
-
+    """Golden records of `named` through one package's batch_align, with
+    that package's own default AlignmentParams."""
+    package = batch_align.__module__.split(".")[0]
+    aln = importlib.import_module(f"{package}.structs").AlignmentParams()
     out = io.StringIO()
-    batch_align(AlignmentParams(), named, out, **kw)
+    batch_align(aln, named, out, **kw)
     rows = [json.loads(line) for line in out.getvalue().splitlines()]
     return [golden_record(i, row) for i, row in zip(idx, rows)]
 
@@ -66,15 +80,64 @@ def test_golden_is_the_reference_and_the_port_meets_it(monkeypatch):
 def test_golden_pairs_follow_the_main_path_stream():
     """make_pairs draws pair by pair, so the golden indices name the same
     pairs in chip_smoke's 10,000-pair batch."""
-    from bench import make_pairs
-
     idx, named = golden_pairs(0)
     whole = make_pairs(idx[-1] + 1, np.random.default_rng(0), length_mix=LENGTH_MIX)
     assert [(a, b) for _, a, _, b in named] == [whole[i] for i in idx]
 
 
+def test_make_pairs_is_the_benchs():
+    """chip_smoke's own make_pairs gives bench.py's pairs for equal seeds,
+    on the main path's mix and on a long class."""
+    import bench
+
+    for seed, n, mix in ((0, 300, LENGTH_MIX), (1, 2, [(2997, 0.5), (4500, 0.5)])):
+        want = bench.make_pairs(n, np.random.default_rng(seed), length_mix=mix)
+        assert make_pairs(n, np.random.default_rng(seed), length_mix=mix) == want
+
+
+def long_records(viterbi_align_batch, encode_marginal, table, gap, seed, **kw):
+    pairs = long_golden_pairs(seed)
+    enc = [encode_marginal(a, b) for a, b in pairs]
+    res = viterbi_align_batch(
+        [e[0] for e in enc], [e[1] for e in enc], [a for a, _ in pairs],
+        [b for _, b in pairs], table, gap, long_slots=LONG_GOLDEN_SLOTS, **kw)
+    return [long_golden_record(i, r) for i, r in enumerate(res)]
+
+
+def test_long_golden_is_the_reference_and_the_port_meets_it(mg94_table, monkeypatch):
+    from coati_tpu.align.engine import viterbi_align_batch as jax_align
+    from coati_tpu.structs import GapParams
+    from coati_tpu.utils import encode_marginal as jax_encode
+    from coati_tpu_torch.align.engine import viterbi_align_batch as torch_align
+    from coati_tpu_torch.structs import GapParams as TorchGapParams
+    from coati_tpu_torch.utils import encode_marginal as torch_encode
+
+    monkeypatch.setenv("COATI_TPU_MAX_DEVICES", "1")
+    golden = json.loads(LONG_GOLDEN.read_text())
+    want = golden["pairs"]
+    assert long_records(jax_align, jax_encode, mg94_table, GapParams(),
+                        golden["seed"]) == want
+    assert long_records(torch_align, torch_encode, mg94_table, TorchGapParams(),
+                        golden["seed"], device="cpu") == want
+
+
 if __name__ == "__main__":
+    from coati_tpu.align.engine import viterbi_align_batch as jax_align
     from coati_tpu.batchrun import batch_align as jax_batch_align
+    from coati_tpu.models import marginal_p, mg94_p
+    from coati_tpu.structs import GapParams
+    from coati_tpu.utils import encode_marginal as jax_encode
+
+    pi = (0.308, 0.185, 0.199, 0.308)
+    table = marginal_p(mg94_p(0.0133, 0.2, pi), pi).astype(np.float32)
+    LONG_GOLDEN.write_text(json.dumps({
+        "source": "coati_tpu.align.engine.viterbi_align_batch on XLA:CPU, "
+                  f"mar-mg defaults, long_slots={LONG_GOLDEN_SLOTS}, "
+                  "chip_smoke.long_golden_pairs, seed 7",
+        "seed": 7,
+        "pairs": long_records(jax_align, jax_encode, table, GapParams(), 7),
+    }, indent=1) + "\n")
+    print(f"wrote {LONG_GOLDEN}")
 
     idx, named = golden_pairs(0)
     GOLDEN.write_text(json.dumps({

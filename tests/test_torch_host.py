@@ -1,0 +1,401 @@
+"""coati_tpu_torch's own host modules against the coati_tpu modules they were
+copied from.
+
+The port imports nothing of the JAX package, so it keeps its own constants,
+structs, utils, version, profiling, io/, models/, align/semiring and
+align/score. Each case sends the same numpy-seeded inputs through both copies
+and wants equal results: tables and arrays bit-equal, strings and file bytes
+equal. Tolerance: none.
+"""
+
+import dataclasses
+import importlib
+import io
+import types
+
+import numpy as np
+import pytest
+
+PI = (0.308, 0.185, 0.199, 0.308)
+IUPAC = "ACGTRYMKSWBDHVN"
+
+
+def both(name):
+    return (importlib.import_module(f"coati_tpu.{name}"),
+            importlib.import_module(f"coati_tpu_torch.{name}"))
+
+
+def _same(x, y, where=""):
+    """Deep equality of constants: arrays bit-equal, containers item by item."""
+    if isinstance(x, np.ndarray):
+        assert isinstance(y, np.ndarray) and x.dtype == y.dtype, where
+        np.testing.assert_array_equal(x, y, err_msg=where)
+    elif isinstance(x, dict):
+        assert x.keys() == y.keys(), where
+        for key in x:
+            _same(x[key], y[key], f"{where}[{key!r}]")
+    elif isinstance(x, (list, tuple)):
+        assert type(x) is type(y) and len(x) == len(y), where
+        for n, (a, b) in enumerate(zip(x, y)):
+            _same(a, b, f"{where}[{n}]")
+    else:
+        assert x == y, where
+
+
+def _random_seqs(rng, n, alphabet, lo=9, hi=120, mult=3):
+    out = []
+    for _ in range(n):
+        ln = int(rng.integers(lo // mult, hi // mult + 1)) * mult
+        out.append("".join(rng.choice(list(alphabet), size=ln)))
+    return out
+
+
+def _coding_seq(rng, codons, n):
+    return "".join(rng.choice(codons, size=n))
+
+
+def case_constants():
+    jc, tc = both("constants")
+    names = [n for n in vars(jc) if not n.startswith("_")
+             and not isinstance(getattr(jc, n), types.ModuleType)]
+    assert names == [n for n in vars(tc) if not n.startswith("_")
+                     and not isinstance(getattr(tc, n), types.ModuleType)]
+    assert len(names) > 10
+    for n in names:
+        _same(getattr(jc, n), getattr(tc, n), n)
+
+
+def case_models():
+    jm, tm = both("models")
+    for t, w in ((0.0133, 0.2), (0.3, 1.1)):
+        _same(jm.mg94_p(t, w, PI), tm.mg94_p(t, w, PI), "mg94_p")
+        _same(jm.ecm_p(t, w), tm.ecm_p(t, w), "ecm_p")
+    sigma = (0.1, 0.2, 0.3, 0.4, 0.5, 0.6)
+    _same(jm.mg94_p(0.05, 0.2, PI, sigma), tm.mg94_p(0.05, 0.2, PI, sigma))
+    _same(jm.mg94_q(0.2, PI), tm.mg94_q(0.2, PI), "mg94_q")
+    p = jm.mg94_p(0.0133, 0.2, PI)
+    for amb in ("SUM", "BEST"):
+        for sub in ("SUM", "MAX"):
+            want = jm.marginal_p(p, PI, jm.marginal.AmbiguousNucs(amb),
+                                 jm.marginal.MarginalSubst(sub))
+            got = tm.marginal_p(p, PI, tm.marginal.AmbiguousNucs(amb),
+                                tm.marginal.MarginalSubst(sub))
+            _same(want, got, f"marginal_p {amb} {sub}")
+    assert jm.nts_ntv(3, 17) == tm.nts_ntv(3, 17)
+    assert jm.k_bias(3, 17) == tm.k_bias(3, 17)
+
+
+def case_encode_marginal():
+    ju, tu = both("utils")
+    jc, _ = both("constants")
+    rng = np.random.default_rng(11)
+    ancs = [_coding_seq(rng, jc.CODONS61, int(rng.integers(3, 60))) for _ in range(12)]
+    ancs += ["ATGTTA", "atgccc", "ATGUUU"]
+    dess = _random_seqs(rng, 6, "ACGT", mult=1) + _random_seqs(rng, 6, IUPAC, mult=1)
+    dess += ["ACGT-N", "acgtn", "AUGC"]
+    for a, d in zip(ancs, dess):
+        for x, y in zip(ju.encode_marginal(a, d), tu.encode_marginal(a, d)):
+            _same(x, y, f"encode_marginal {a} {d}")
+    for a, d in (("ATGNNN", "ATG"), ("ATGTAACCC", "ATG"), ("ATGTAA", "ATG"), ("ATGCC", "ATG"),
+                 ("ATGCCC", "AXG")):
+        errs = []
+        for u in (ju, tu):
+            with pytest.raises(ValueError) as exc:
+                u.encode_marginal(a, d)
+            errs.append(str(exc.value))
+        assert errs[0] == errs[1]
+    for cod in ("AAA", "TTT", "CAG", "tga"):
+        assert ju.cod_int(cod) == tu.cod_int(cod)
+    for c in range(64):
+        if c in jc.STOP_CODONS_64:
+            with pytest.raises(ValueError, match="Stop codon"):
+                tu.cod64_to_61(c)
+        else:
+            assert ju.cod64_to_61(c) == tu.cod64_to_61(c)
+    for c in range(61):
+        assert ju.cod61_to_64(c) == tu.cod61_to_64(c)
+        assert [ju.get_nuc(c, q) for q in range(3)] == [tu.get_nuc(c, q) for q in range(3)]
+        assert ju.cod_distance(c, 60 - c) == tu.cod_distance(c, 60 - c)
+
+
+def case_end_stops():
+    ju, tu = both("utils")
+    js, ts = both("structs")
+    rng = np.random.default_rng(5)
+    seqs = _random_seqs(rng, 8, "ACGT")
+    stops = ["TAA", "TAG", "TGA", "", "taa", "NNN"]
+    for n, body in enumerate(seqs):
+        pair = [body + stops[n % 6], seqs[(n + 1) % 8] + stops[(n // 2) % 6]]
+        out = []
+        for u, st in ((ju, js), (tu, ts)):
+            d = st.SeqData(names=["a", "b"], seqs=list(pair), score=1.25)
+            u.trim_end_stops(d)
+            trimmed = (list(d.seqs), list(d.stops))
+            u.restore_end_stops(d, st.GapParams(len=1 + 2 * (n % 2)))
+            out.append((trimmed, list(d.seqs), d.score))
+        assert out[0] == out[1]
+
+
+def case_set_subst(tmp_path):
+    ju, tu = both("utils")
+    js, ts = both("structs")
+    jm, tm = both("models.marginal")
+    rate = tmp_path / "rate.csv"
+    jc, _ = both("constants")
+    rng = np.random.default_rng(2)
+    lines = ["0.05"]
+    for c0 in jc.CODONS61:
+        for c1 in jc.CODONS61:
+            lines.append(f"{c0},{c1},{rng.random() * 0.01:.6f}")
+    rate.write_text("\n".join(lines) + "\n")
+    settings = [
+        {}, {"model": "mar-ecm"}, {"br_len": 0.2, "omega": 0.5},
+        {"sigma": (0.1, 0.2, 0.3, 0.4, 0.5, 0.6)}, {"rate": str(rate)},
+        {"model": "tri-mg"}, {"model": "tri-ecm"},
+    ]
+    for kw in settings:
+        got = []
+        for u, st, mm in ((ju, js, jm), (tu, ts, tm)):
+            aln = st.AlignmentParams(**kw)
+            aln.amb = mm.AmbiguousNucs("BEST") if kw.get("br_len") else aln.amb
+            u.set_subst(aln)
+            got.append((aln.subst_matrix, aln.model, tuple(aln.pi)))
+        if got[0][0] is None:
+            assert got[1][0] is None
+        else:
+            _same(got[0][0], got[1][0], f"set_subst {kw}")
+        assert got[0][1:] == got[1][1:]
+    for u, st in ((ju, js), (tu, ts)):
+        with pytest.raises(ValueError, match="Mutation model unknown"):
+            u.set_subst(st.AlignmentParams(model="nope"))
+    jcsv, tcsv = both("io.matrix_csv")
+    _same(jcsv.parse_matrix_csv(str(rate)), tcsv.parse_matrix_csv(str(rate)))
+
+
+def case_process(tmp_path):
+    """process_marginal, order_ref and process_alignment leave the same data
+    and raise the same errors."""
+    ju, tu = both("utils")
+    js, ts = both("structs")
+    inputs = [
+        (["a", "b"], ["ATGCCCTAA", "ATGCC"], {}),
+        (["a", "b"], ["ATGCC", "ATGCCCTAA"], {"rev": True}),
+        (["a", "b"], ["ATGCC", "ATGCCC"], {"refs": "b"}),
+        (["a", "b"], ["ATGCC", "ATGCCC"], {"refs": "zz"}),
+        (["a", "b"], ["ATGCC", "ATGCC"], {}),
+        (["a"], ["ATG"], {}),
+    ]
+    for names, seqs, kw in inputs:
+        got = []
+        for u, st in ((ju, js), (tu, ts)):
+            aln = st.AlignmentParams(**kw)
+            aln.data = st.SeqData(names=list(names), seqs=list(seqs))
+            try:
+                u.process_marginal(aln)
+                got.append((aln.data.names, aln.data.seqs, aln.data.stops))
+            except ValueError as exc:
+                got.append(str(exc))
+        assert got[0] == got[1]
+    for seqs in (["CTCTGGATAGTG", "CT----ATAGTG"], ["ATGCCCTAA", "ATG---TAA"],
+                 ["ATG", "ATGC"]):
+        got = []
+        for u, st in ((ju, js), (tu, ts)):
+            aln = st.AlignmentParams()
+            aln.data = st.SeqData(names=["a", "b"], seqs=list(seqs))
+            try:
+                got.append((u.process_alignment(aln), aln.data.seqs, aln.data.stops))
+            except ValueError as exc:
+                got.append(str(exc))
+        assert got[0] == got[1]
+
+
+def _seqdata(st, rng):
+    seqs = _random_seqs(rng, 2, "ACGT-", lo=150, hi=150)
+    return st.SeqData(names=["anc", "a_longer_name"], seqs=seqs, score=-12.3456789)
+
+
+def case_io_roundtrip(kind, tmp_path):
+    """Each writer gives the same bytes, each reader the same data, and what
+    one copy wrote the other reads back."""
+    js, ts = both("structs")
+    jio, tio = both({"fasta": "io.fasta", "phylip": "io.phylip", "json": "io.jsonio"}[kind])
+    short = {"fasta": "fasta", "phylip": "phylip", "json": "json"}[kind]
+    texts = []
+    for mod, st in ((jio, js), (tio, ts)):
+        out = io.StringIO()
+        getattr(mod, f"write_{short}")(_seqdata(st, np.random.default_rng(3)), out)
+        texts.append(out.getvalue())
+    assert texts[0] == texts[1] and texts[0]
+    read = [getattr(mod, f"read_{short}")(io.StringIO(texts[1 - n]))
+            for n, mod in enumerate((jio, tio))]
+    assert (read[0].names, read[0].seqs) == (read[1].names, read[1].seqs)
+    back = io.StringIO()
+    getattr(tio, f"write_{short}")(read[1], back)
+    if kind != "json":  # json carries the score, the others do not
+        assert back.getvalue() == texts[0]
+    else:
+        assert read[0].score == read[1].score
+        out = io.StringIO()
+        tio.write_json_sample(read[1], out, 0, 2)
+        want = io.StringIO()
+        jio.write_json_sample(read[0], want, 0, 2)
+        assert out.getvalue() == want.getvalue()
+
+
+def case_io_dispatch(tmp_path):
+    """read_input and write_output pick the codec from the path the same way
+    and write the same files."""
+    jd, td = both("io.iodispatch")
+    js, ts = both("structs")
+    for path in ("x.fasta", "fa:x.txt", "json:-", "x.phy", "dir/x.json", "x", ""):
+        assert dataclasses.asdict(jd.extract_file_type(path)) == \
+            dataclasses.asdict(td.extract_file_type(path))
+    src = tmp_path / "in.fasta"
+    src.write_text(">a\nCTCTGGATAGTG\n>b\nCTATAGTG\n")
+    for ext in ("fasta", "phy", "json"):
+        outs = []
+        for tag, d, st in (("j", jd, js), ("t", td, ts)):
+            aln = st.AlignmentParams()
+            aln.data.path = str(src)
+            aln.data = d.read_input(aln)
+            aln.data.score = 1.5
+            aln.output = str(tmp_path / f"{tag}.{ext}")
+            d.write_output(aln)
+            outs.append((tmp_path / f"{tag}.{ext}").read_bytes())
+        assert outs[0] == outs[1] and outs[0]
+    for d, st in ((jd, js), (td, ts)):
+        aln = st.AlignmentParams()
+        aln.data.path = str(tmp_path / "missing.fasta")
+        with pytest.raises(ValueError, match="Opening input file"):
+            d.read_input(aln)
+
+
+def case_alignment_score(mg94_table):
+    jsc, tsc = both("align.score")
+    js, ts = both("structs")
+    cases = [
+        (["CTCTGGATAGTG", "CT----ATAGTG"], 1),
+        (["ATGCCC---GGG", "ATGCCCAAAGGG"], 1),
+        (["ATGCCC---GGGTAA", "ATGCCCAAAGGGTAA"], 3),
+        (["ATGCCCGGG", "ATGNCCGRG"], 1),
+    ]
+    for seqs, k in cases:
+        got = []
+        for mod, st in ((jsc, js), (tsc, ts)):
+            aln = st.AlignmentParams()
+            aln.gap.len = k
+            aln.data = st.SeqData(names=["a", "b"], seqs=list(seqs))
+            got.append(mod.alignment_score(aln, mg94_table))
+        assert got[0] == got[1] and np.isfinite(got[0])
+
+
+def case_semiring():
+    jsr, tsr = both("align.semiring")
+    rng = np.random.default_rng(9)
+    for g, e in [(0.001, 1 - 1 / 6), (0.002, 0.9)] + list(rng.random((6, 2)) * 0.98 + 0.01):
+        _same(jsr.gap_constants(g, e), tsr.gap_constants(g, e))
+    for x in (-20.0, -3.0, 0.0, 5.0, 10.0, 20.0):
+        assert jsr.log1p_exp_f32(x) == tsr.log1p_exp_f32(x)
+        assert jsr.log_sum_exp_f32(x, 1.0) == tsr.log_sum_exp_f32(x, 1.0)
+    assert (jsr.ZERO, jsr.ONE) == (tsr.ZERO, tsr.ONE)
+
+
+def case_structs_version_profiling():
+    js, ts = both("structs")
+    assert dataclasses.asdict(js.GapParams()) == dataclasses.asdict(ts.GapParams())
+    ja, ta = js.AlignmentParams(), ts.AlignmentParams()
+    fields = [f.name for f in dataclasses.fields(ja)]
+    assert fields == [f.name for f in dataclasses.fields(ta)]
+    for name in fields:
+        x, y = getattr(ja, name), getattr(ta, name)
+        if dataclasses.is_dataclass(x):
+            assert dataclasses.asdict(x) == dataclasses.asdict(y)
+        elif hasattr(x, "value"):  # the enums of models.marginal
+            assert x.value == y.value
+        else:
+            assert x == y or (x is None and y is None)
+    assert [ja.is_marginal(), js.AlignmentParams(model="tri-mg").is_marginal()] == \
+        [ta.is_marginal(), ts.AlignmentParams(model="tri-mg").is_marginal()]
+    jv, tv = both("version")
+    import coati_tpu
+    import coati_tpu_torch
+
+    assert coati_tpu.__version__ == coati_tpu_torch.__version__
+    assert jv.version_integer() == tv.version_integer()
+    assert jv.version_integer_from_string("1.2.3") == tv.version_integer_from_string("1.2.3")
+    assert tv.check_version_number() == 0 and tv.check_version_number(1) == 1
+    jp, tp = both("profiling")
+    meters = [jp.ThroughputMeter(), tp.ThroughputMeter()]
+    for m in meters:
+        with m.measure(1000, 3):
+            pass
+        m.seconds = 0.5
+    assert meters[0].summary() == meters[1].summary()
+
+
+def case_batchrun_helpers(tmp_path):
+    """The helpers batchrun and cli took over from the JAX package's."""
+    from coati_tpu import batchrun as jb
+    from coati_tpu import cli as jcli
+    from coati_tpu_torch import batchrun as tb
+    from coati_tpu_torch import cli as tcli
+
+    fasta = tmp_path / "pairs.fasta"
+    fasta.write_text(">a0\nATGCCC\n>d0\nATGCC\n>a1\nATGAAA\n>d1\nATGAA\n")
+    assert jb.read_pairs_fasta(str(fasta)) == tb.read_pairs_fasta(str(fasta))
+    odd = tmp_path / "odd.fasta"
+    odd.write_text(">a0\nATGCCC\n")
+    for mod in (jb, tb):
+        with pytest.raises(ValueError, match="even number"):
+            mod.read_pairs_fasta(str(odd))
+    manifest = tmp_path / "m.txt"
+    manifest.write_text("0\n\n7\n12\n")
+    assert jb._load_done(str(manifest)) == tb._load_done(str(manifest)) == {0, 7, 12}
+    assert jb._load_done("") == tb._load_done("") == set()
+    import argparse
+
+    argv = ["in.fasta", "-m", "mar-ecm", "-t", "0.2", "-g", "0.01", "-e", "0.5",
+            "-w", "0.3", "-k", "3", "-a", "best", "--marginal-sub", "max",
+            "-p", "0.1", "0.2", "0.3", "0.4", "-o", "out.json"]
+    filled = []
+    for mod in (jcli, tcli):
+        p = argparse.ArgumentParser()
+        mod._add_model_opts(p, "models")
+        aln = mod._fill_aln(p.parse_args(argv))
+        filled.append({f.name: getattr(aln, f.name) for f in dataclasses.fields(aln)
+                       if f.name not in ("data", "gap", "amb", "sub")}
+                      | {"gap": dataclasses.asdict(aln.gap), "amb": aln.amb.value,
+                         "sub": aln.sub.value, "path": aln.data.path})
+        with pytest.raises(argparse.ArgumentTypeError):
+            mod._positive_float("0")
+    assert filled[0] == filled[1]
+
+
+def _io_case(kind):
+    return lambda tmp_path: case_io_roundtrip(kind, tmp_path)
+
+
+CASES = {
+    "constants": case_constants,
+    "models": case_models,
+    "encode_marginal": case_encode_marginal,
+    "end_stops": case_end_stops,
+    "set_subst": case_set_subst,
+    "process": case_process,
+    "io_fasta": _io_case("fasta"),
+    "io_phylip": _io_case("phylip"),
+    "io_json": _io_case("json"),
+    "io_dispatch": case_io_dispatch,
+    "alignment_score": case_alignment_score,
+    "semiring": case_semiring,
+    "structs_version_profiling": case_structs_version_profiling,
+    "batchrun_cli_helpers": case_batchrun_helpers,
+}
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_copied_module_equals_its_original(name, tmp_path, mg94_table):
+    case = CASES[name]
+    wants = case.__code__.co_varnames[: case.__code__.co_argcount]
+    given = {"tmp_path": tmp_path, "mg94_table": mg94_table}
+    case(**{w: given[w] for w in wants})
