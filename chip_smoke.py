@@ -19,6 +19,13 @@ Phases, each printing lines (any failure raises, exit code non-zero):
              several blocks a pair); after every segment the ring and raw corners,
              the backpointers on true cells, the walk state and the ops.
              Everything must be bit-equal.
+             Forward kernel and sample walk: k=1 and k=3, ragged groups with
+             all 15 IUPAC columns and the gap code, each route of the sweep;
+             the corners and every M, D, I of each pair's rectangle within
+             FWD_ATOL + FWD_RTOL * |value| of plain (the largest absolute
+             and relative difference printed); the walk on the kernel's
+             matrices and fixed uniforms: op streams equal, scores within
+             SCORE_ATOL + SCORE_RTOL * |score|.
 4. main    - the batch verb's batch_align over 10,000 synthetic mar-mg
              pairs (make_pairs and the length mix below, seed 0), run twice;
              then WARM_RUNS warm runs are timed; the launch counters are reset
@@ -44,10 +51,27 @@ Phases, each printing lines (any failure raises, exit code non-zero):
              one pair of LONGPAIR_NT nt through the CLI's alignpair: it
              ungaps to its inputs and its score is the score kernel's.
 6. numbers - warm alignments/s, device times from CUDA events, Gcells/s,
-             kernel against plain times and bounds, peak device memory.
+             kernel against plain times and bounds, peak device memory
+             (printed last, after phases 7 and 8).
+7. sample  - the CLI's sample on one pair of 9,999 nt, 200 samples, and one
+             of 29,397 nt, 1,000 samples, each twice with one seed; counters
+             reset just before, read just after. Checks: every sample ungaps
+             to its inputs, both runs wrote the same bytes, the Forward
+             kernel and the sample walk launched. At 9,999 nt also: the
+             largest adjusted corner against native.forward_score, the
+             Forward kernel against its plain version over the whole
+             matrix, all 200 walks again by the plain walk on the run's own
+             matrices and uniforms. Then the native route on the card's
+             host: a 999 nt pair, 1,000 samples, native.sample_anchor beside.
+8. msa     - the CLI's msa over a synthetic tree of 1,000 leaves of ~1,500
+             nt with as many different distances to the reference (1,000
+             stacked tables): every row ungaps to its sequence; a 12-leaf
+             tree equals the JAX reference's output
+             (tests/data/torch_msa_golden.json).
 
-The line before last is a JSON object with one entry per kernel; the last
-line is {"ok": true, "device": {...}}.
+Every line carries the seconds since the start. The line before last is a
+JSON object with one entry per kernel; the last line is
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -70,15 +94,19 @@ import torch  # noqa: E402
 
 from coati_tpu_torch import batchrun, cli, utils  # noqa: E402
 from coati_tpu_torch.align import engine, longseq  # noqa: E402
+from coati_tpu_torch.align.sample_device import sample_paths_plain  # noqa: E402
 from coati_tpu_torch.align.wavefront import (  # noqa: E402
     traceback_plain,
     walk_segment_plain,
     wavefront_plain,
 )
 from coati_tpu_torch.constants import CODONS61  # noqa: E402
+from coati_tpu_torch.io.fasta import read_fasta  # noqa: E402
 from coati_tpu_torch.kernels import _build  # noqa: E402
+from coati_tpu_torch.kernels import sample_walk as sample_mod  # noqa: E402
 from coati_tpu_torch.kernels import traceback_walk as walk_mod  # noqa: E402
 from coati_tpu_torch.kernels import wavefront_fill as fill_mod  # noqa: E402
+from coati_tpu_torch.kernels import wavefront_forward as fwd_mod  # noqa: E402
 from coati_tpu_torch.kernels import wavefront_score as score_mod  # noqa: E402
 from coati_tpu_torch.kernels import wavefront_segment as seg_mod  # noqa: E402
 from coati_tpu_torch.params import alignment_params, params_from_numpy  # noqa: E402
@@ -108,7 +136,34 @@ CELL_OPS_BP = 32
 # the JAX reference's results for some of the main path's pairs, written and
 # checked by tests/test_torch_golden.py
 GOLDEN = ROOT / "tests" / "data" / "torch_main_path_golden.json"
+# the JAX reference's msa output for a small tree, written and checked by
+# tests/test_torch_golden.py
+MSA_GOLDEN = ROOT / "tests" / "data" / "torch_msa_golden.json"
+MSA_GOLDEN_SHAPE = (12, 300)  # leaves, nt of the reference
+MSA_SHAPE = (1000, 1500)  # the msa phase: leaves, nt of the reference
+# the sample phase: (nt, samples, seed); the first is the kernels' cell
+SAMPLE_RUNS = [(9999, 200, 5), (29397, 1000, 6)]
+SAMPLE_HOST_RUN = (999, 1000, 7)  # the native route, on the card's host
+# f32 operations of one Forward cell: the 10 shared partial sums and 8 adds
+# of the recurrence, and 5 lse of 8 each (max, subtract, negated absolute
+# value, minimum, exp, log1p, compare-and-select, add; exp and log1p counted
+# as one operation each)
+CELL_OPS_FORWARD = 58
+# f32 operations of one step of the sample walk: 7 adds for the candidates, 3
+# subtractions, 3 exp, 1 log (one operation each), 2 adds, a multiplication,
+# 2 compares, 3 selects, a subtraction and the score's add
+STEP_OPS_WALK = 24
 WARM_RUNS = 5  # timed warm runs of the main path; the first is also checked
+# The Forward kernel against its plain version: lse is built from expf and
+# log1pf, which differ from torch's CUDA exp and log1p in the last place, and
+# the differences add up along a path, so a value is held to FWD_ATOL +
+# FWD_RTOL * |value| (f32 keeps 6e-8 of a value; cells of a 10 knt pair reach
+# 1e4). The walk on the same matrices and uniforms must give the same ops;
+# a score is a sum of up to na + nb f32 log probabilities.
+FWD_RTOL = 4e-6
+FWD_ATOL = 2e-5
+SCORE_RTOL = 4e-6
+SCORE_ATOL = 1e-4
 KERNELS = {
     "wavefront_fill": {
         "route": "cuda",
@@ -135,6 +190,16 @@ KERNELS = {
         "source": "coati_tpu_torch/csrc/traceback_walk.cu",
         "replaces": "coati_tpu/align/longseq.py:57",
     },
+    "wavefront_forward": {
+        "route": "cuda",
+        "source": "coati_tpu_torch/csrc/wavefront_segment.cu",
+        "replaces": "coati_tpu/kernels/wavefront_pallas.py:330",
+    },
+    "sample_walk": {
+        "route": "cuda",
+        "source": "coati_tpu_torch/csrc/sample_walk.cu",
+        "replaces": "coati_tpu/align/sample_device.py:39",
+    },
 }
 
 
@@ -148,25 +213,72 @@ def make_pairs(n_pairs, rng, length_mix=LENGTH_MIX):
     probs = np.array([p for _, p in length_mix])
     probs = probs / probs.sum()
     pairs = []
-    nts = np.array(list("ACGT"))
     for _ in range(n_pairs):
         nt_len = int(rng.choice(lengths, p=probs))
         anc = "".join(rng.choice(codon_arr, size=nt_len // 3))
-        des = list(anc)
-        idx = rng.random(len(des)) < 0.05
-        for i in np.nonzero(idx)[0]:
-            des[i] = str(rng.choice(nts))
-        des = "".join(des)
-        for _ in range(int(rng.integers(0, 3))):
-            ln = int(rng.integers(1, 10))
-            pos = int(rng.integers(0, max(1, len(des) - ln)))
-            if rng.random() < 0.5:
-                des = des[:pos] + des[pos + ln:]
-            else:
-                ins = "".join(rng.choice(nts, size=ln))
-                des = des[:pos] + ins + des[pos:]
-        pairs.append((anc, des))
+        pairs.append((anc, descendant(anc, rng)))
     return pairs
+
+
+def descendant(anc, rng):
+    """anc with ~5% point mutations and 0-2 indels of 1-9 nt."""
+    nts = np.array(list("ACGT"))
+    des = list(anc)
+    idx = rng.random(len(des)) < 0.05
+    for i in np.nonzero(idx)[0]:
+        des[i] = str(rng.choice(nts))
+    des = "".join(des)
+    for _ in range(int(rng.integers(0, 3))):
+        ln = int(rng.integers(1, 10))
+        pos = int(rng.integers(0, max(1, len(des) - ln)))
+        if rng.random() < 0.5:
+            des = des[:pos] + des[pos + ln:]
+        else:
+            ins = "".join(rng.choice(nts, size=ln))
+            des = des[:pos] + ins + des[pos:]
+    return des
+
+
+def make_msa_inputs(n_leaves, nt, seed):
+    """Inputs of the msa verb: a reference of nt nt (random codons), n_leaves
+    descendants of it (make_pairs's mutations) and a random binary tree over
+    them whose branch lengths are all different, so that every leaf has its
+    own distance to the reference. Returns (FASTA text, Newick text,
+    reference name, {name: sequence}).
+
+    The rows msa writes for such leaves are not all one length: merge_indels
+    (msa/insertions.py, the same in both packages) adds the gap columns of a
+    group whose insertions are already closed once for every position it
+    passes, when that group meets one with open insertions. Every row still
+    ungaps to its sequence, and the port writes the JAX package's bytes."""
+    rng = np.random.default_rng(seed)
+    ref = "".join(rng.choice(np.array(CODONS61), size=nt // 3))
+    seqs = {"ref": ref}
+    for i in range(n_leaves):
+        seqs[f"leaf{i}"] = descendant(ref, rng)
+    nodes = list(seqs)
+    rng.shuffle(nodes)
+    lengths = rng.permutation(2 * len(nodes))  # all different
+    n_len = 0
+
+    def branch():
+        nonlocal n_len
+        n_len += 1
+        return 0.0005 + 0.00001 * int(lengths[n_len - 1])
+
+    while len(nodes) > 2:  # join the two oldest subtrees, queue the result
+        a, b = nodes.pop(0), nodes.pop(0)
+        nodes.append(f"({a}:{branch():.5f},{b}:{branch():.5f})")
+    newick = f"({nodes[0]}:{branch():.5f},{nodes[1]}:{branch():.5f});"
+    fasta = "".join(f">{name}\n{seq}\n" for name, seq in seqs.items())
+    return fasta, newick, "ref", seqs
+
+
+def msa_golden_record(text):
+    """Golden record of an msa run's FASTA output."""
+    rows = read_fasta(io.StringIO(text)).seqs
+    return {"rows": len(rows), "width": len(rows[0]),
+            "sha256": hashlib.sha256(text.encode()).hexdigest()}
 
 
 def golden_record(index, row):
@@ -197,6 +309,8 @@ WRAPPERS = {
     "wavefront_segment": (seg_mod, "wavefront_segment"),
     "wavefront_score": (score_mod, "wavefront_score"),
     "traceback_walk_segment": (walk_mod, "walk_segment"),
+    "wavefront_forward": (fwd_mod, "wavefront_forward"),
+    "sample_walk": (sample_mod, "sample_walk"),
 }
 
 
@@ -232,16 +346,23 @@ def launch_counts():
             "traceback_walk": walk_mod.LAUNCHES,
             "wavefront_segment": seg_mod.LAUNCHES,
             "wavefront_score": score_mod.LAUNCHES,
-            "traceback_walk_segment": walk_mod.SEGMENT_LAUNCHES}
+            "traceback_walk_segment": walk_mod.SEGMENT_LAUNCHES,
+            "wavefront_forward": fwd_mod.LAUNCHES,
+            "sample_walk": sample_mod.LAUNCHES}
 
 
 def reset_launch_counts():
     fill_mod.LAUNCHES = walk_mod.LAUNCHES = seg_mod.LAUNCHES = 0
     score_mod.LAUNCHES = walk_mod.SEGMENT_LAUNCHES = 0
+    fwd_mod.LAUNCHES = sample_mod.LAUNCHES = 0
+
+
+T_START = time.perf_counter()
 
 
 def say(phase: str, msg: str) -> None:
-    print(f"[{phase}] {msg}", flush=True)
+    """One line of a phase, with the seconds since the script started."""
+    print(f"[{phase} +{time.perf_counter() - T_START:.0f}s] {msg}", flush=True)
 
 
 def elapsed_ms(fn, dev, reps: int) -> float:
@@ -541,6 +662,127 @@ def phase_segment_kernels(dev):
          1000, "global", 18),
     ]
     errs = [check_segment_case(dev, *c) for c in cases]
+    return max(e[0] for e in errs), max(e[1] for e in errs)
+
+
+def forward_difference(want, got, what):
+    """Largest absolute and relative difference of Forward values `got` from
+    `want`, held to FWD_ATOL + FWD_RTOL * |want|; cells that are LOWEST on
+    one side must be LOWEST on the other."""
+    live = want > -1e30
+    if not torch.equal(live, got > -1e30):
+        raise AssertionError(f"{what}: LOWEST cells differ from the plain version")
+    w, g = want[live].double(), got[live].double()
+    if w.numel() == 0:
+        return 0.0, 0.0
+    diff = (w - g).abs()
+    over = diff - (FWD_ATOL + FWD_RTOL * w.abs())
+    abs_err = float(diff.max())
+    rel_err = float((diff / w.abs().clamp(min=1e-30)).max())
+    if not bool(torch.isfinite(g).all()) or float(over.max()) > 0:
+        at = int(over.argmax())
+        raise AssertionError(
+            f"{what}: differs from the plain version by {float(diff[at]):.3e} "
+            f"at value {float(w[at]):.6g} (max abs {abs_err:.3e}, max rel "
+            f"{rel_err:.3e}; tolerance {FWD_ATOL} + {FWD_RTOL} * |value|)")
+    return abs_err, rel_err
+
+
+def check_walk(dev, name, mdi, enc_a, enc_b, p, n_samples, seed, corners=None):
+    """The sample walk kernel against its plain version on the same matrices
+    and the same uniforms: op streams equal, scores within SCORE_ATOL +
+    SCORE_RTOL * |score|. corners: written into mdi's corner cell first.
+    Returns the largest score difference."""
+    k = p.k
+    R, Cc = mdi.shape[:2]
+    if corners is not None:
+        mdi[R - 1, Cc - 1] = corners
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    uniforms = torch.rand(((R - k) + (Cc - k) + 1, n_samples), generator=gen,
+                          dtype=torch.float32, device=dev)
+    args = (mdi, enc_a, enc_b, p.table, p.gap_consts, uniforms)
+    ops_k, sc_k = sample_mod.sample_walk(*args, k=k)
+    ops_p, sc_p = sample_paths_plain(*args, k=k)
+    return compare_walks(name, ops_k, sc_k, ops_p, sc_p)
+
+
+def compare_walks(name, ops_k, sc_k, ops_p, sc_p):
+    if not torch.equal(ops_k, ops_p):
+        t, n = (int(x[0]) for x in torch.nonzero(ops_k != ops_p, as_tuple=True))
+        raise AssertionError(
+            f"sample walk {name}: op streams differ from the plain version in "
+            f"{int((ops_k != ops_p).any(0).sum())} of {ops_k.shape[1]} samples, "
+            f"first at step {t} of sample {n} (kernel {int(ops_k[t, n])}, plain "
+            f"{int(ops_p[t, n])})")
+    diff = (sc_k.double() - sc_p.double()).abs()
+    if (not bool(torch.isfinite(sc_k).all())
+            or bool((diff > SCORE_ATOL + SCORE_RTOL * sc_p.double().abs()).any())):
+        raise AssertionError(
+            f"sample walk {name}: scores differ from the plain version by up "
+            f"to {float(diff.max()):.3e} (tolerance {SCORE_ATOL} + {SCORE_RTOL} "
+            f"* |score|)")
+    say("kernels", f"sample walk {name}: {ops_k.shape[1]} samples, "
+        f"{int((ops_k >= 0).sum())} ops equal to plain, scores "
+        f"{float(sc_k.min()):.3f}..{float(sc_k.max()):.3f} within "
+        f"{float(diff.max()):.3e} of plain")
+    return float(diff.max())
+
+
+def check_forward_case(dev, name, k, B, la_range, lb_range, route, seed):
+    """One ragged group through the Forward kernel and its plain version on
+    the card: the adjusted corners and every M, D, I of each pair's (la+k) x
+    (lb+k) rectangle, margins included, within the tolerance; then the
+    sample walk on the kernel's matrices of pair 0 against its plain
+    version. route as check_segment_case's."""
+    aseq, bseq, la, lb = _random_group(seed, k, la_range, lb_range, B)
+    aln = alignment_params(gap_len=k)
+    p = params_from_numpy(aln.subst_matrix, aln.gap, dev)
+    a, b, tla, tlb = (torch.from_numpy(x).to(dev) for x in (aseq, bseq, la, lb))
+    args = (a, b, tla, tlb, p.table, p.gap_consts)
+    C = bseq.shape[1] + k
+    blocks, threads = fwd_mod.forward_shape(B, C, dev)
+    took = "blocks" if blocks > 1 else (
+        "shared" if fill_mod.ring_in_shared(C, k) else "global")
+    if took != route:
+        raise AssertionError(f"forward case {name}: route {took}, meant {route}")
+    adj_k, mdi_k = fwd_mod.wavefront_forward(*args, k=k)
+    adj_p, mdi_p = fwd_mod.forward_plain(*args, k=k)
+    abs_err, rel_err = forward_difference(adj_p, adj_k, f"forward case {name}: corners")
+    cells, lowest = 0, 0.0
+    for q in range(B):
+        rect = (slice(0, int(la[q]) + k), slice(0, int(lb[q]) + k))
+        e = forward_difference(mdi_p[q][rect], mdi_k[q][rect],
+                               f"forward case {name}: pair {q}")
+        abs_err, rel_err = max(abs_err, e[0]), max(rel_err, e[1])
+        cells += (int(la[q]) + k) * (int(lb[q]) + k)
+        lowest = min(lowest, float(mdi_k[q][rect][mdi_k[q][rect] > -1e30].min()))
+    say("kernels", f"forward {name}: B={B} NA={aseq.shape[1]} NB={bseq.shape[1]} "
+        f"k={k} {blocks} x {threads} threads a pair, route {route}: corners and "
+        f"M, D, I of {cells} cells within {abs_err:.3e} (relative {rel_err:.3e}) "
+        f"of plain, values down to {lowest:.1f}")
+    # pair 0's matrices, cut to its rectangle, with its adjusted corners
+    R0, C0 = int(la[0]) + k, int(lb[0]) + k
+    walk_err = check_walk(
+        dev, name, mdi_k[0, :R0, :C0].contiguous(), a[0, : R0 - k].contiguous(),
+        b[0, : C0 - k].contiguous(), p, 203, seed, corners=adj_k[:, 0])
+    return abs_err, walk_err
+
+
+def phase_sample_kernels(dev):
+    """The Forward kernel and the sample walk against their plain versions:
+    k = 1 and 3, ragged groups, every route of the sweep."""
+    cases = [
+        ("ragged 0.6-1 knt", 1, 5, (600, 999), (600, 999), "shared", 21),
+        ("ragged 0.6-1 knt, k=3", 3, 5, (600, 999), (600, 999), "shared", 22),
+        ("wide descendants", 1, 3, (300, 600), (6500, 6600), "blocks", 23),
+        ("wide descendants, k=3", 3, 3, (300, 600), (4900, 5100), "blocks", 24),
+        ("wide group of wide descendants", 1, 67, (90, 150), (6500, 6600),
+         "global", 25),
+        ("wide group of wide descendants, k=3", 3, 67, (90, 150), (4900, 5100),
+         "global", 26),
+    ]
+    errs = [check_forward_case(dev, *c) for c in cases]
     return max(e[0] for e in errs), max(e[1] for e in errs)
 
 
@@ -907,7 +1149,10 @@ def phase_long(dev, mix_named):
     t0 = time.perf_counter()
     scores = score_kernel_scores([(a, b) for _, a, _, b in named], aln, dev)
     score_wall = time.perf_counter() - t0
-    launches = launch_counts()
+    launches = {name: count for name, count in launch_counts().items()
+                if name in ("wavefront_segment", "wavefront_score",
+                            "traceback_walk_segment", "wavefront_fill",
+                            "traceback_walk")}
 
     if n != len(named) or len(rows) != len(named):
         raise AssertionError(f"aligned {n} of {len(named)} pairs")
@@ -970,7 +1215,7 @@ def score_cell(dev):
 
 
 # --- phase 6 ----------------------------------------------------------------
-def phase_numbers(card, main_shape, main, long, score, errs):
+def phase_numbers(card, main_shape, main, long, score, sample, errs):
     tag = f"[{card}]"
     t = main["timer"]
     fill_s, walk_s = t.seconds("wavefront_fill"), t.seconds("traceback_walk")
@@ -1034,12 +1279,257 @@ def phase_numbers(card, main_shape, main, long, score, errs):
         entry("traceback_walk_segment", long["launches"]["traceback_walk_segment"],
               max(errs["segment_walk"], cell["walk_err"]), cell["walk_ms"],
               cell["walk_plain_ms"], cell["walk_bound"]),
+        entry("wavefront_forward", sample["launches"]["wavefront_forward"],
+              max(errs["forward"], sample["forward_err"]), sample["forward_ms"],
+              sample["forward_plain_ms"], sample["forward_bound"]),
+        entry("sample_walk", sample["launches"]["sample_walk"],
+              max(errs["sample_walk"], sample["walk_err"]), sample["walk_ms"],
+              sample["walk_plain_ms"], sample["walk_bound"]),
     ]
     for e in kernels:
         say("numbers", f"{tag} {e['name']}: {e['ms']:.3f} ms, bound {e['bound_ms']:.3g} "
             f"ms by {e['bound_by']} ({e['bound_ms'] / e['ms']:.3%} of it reached), "
             f"plain {e['plain_ms']:.1f} ms, no library call computes it")
     print(json.dumps({"kernels": kernels}), flush=True)
+
+
+# --- phase 7: sampling -------------------------------------------------------
+def _trimmed_encoding(a, b):
+    """The encoded pair the sample verb works on: end stops trimmed."""
+    d = SeqData(names=["anc", "des"], seqs=[a, b])
+    utils.trim_end_stops(d)
+    return encode_marginal(*d.seqs)
+
+
+def _check_samples(path, a, b, n):
+    arr = json.loads(Path(path).read_text())
+    if len(arr) != n:
+        raise AssertionError(f"sample wrote {len(arr)} of {n} samples")
+    _check_rows([("anc", a, "des", b)] * n, arr)
+    return len({tuple(r["alignment"].values()) for r in arr})
+
+
+def run_sample(dev, card, tmp, nt, n, seed, cell=False):
+    """One synthetic pair of nt nt, n samples, through the CLI's sample on
+    the card, twice with one seed. Checks: every sample ungaps to its inputs,
+    both runs wrote the same bytes, both kernels launched. cell: also the
+    kernels' cell at this shape: the largest adjusted corner against
+    native.forward_score, the Forward kernel and the walk (on the run's own
+    matrices and uniforms) against their plain versions, timed."""
+    (a, b), = make_pairs(1, np.random.default_rng(seed), length_mix=[(nt, 1.0)])
+    src = Path(tmp) / f"pair{nt}.fasta"
+    src.write_text(f">anc\n{a}\n>des\n{b}\n")
+    outs = [Path(tmp) / f"samples{nt}_{r}.json" for r in range(2)]
+    argv = ["sample", str(src), "-n", str(n), "-s", str(seed), "--device", dev.type]
+    seen = {}
+    real_forward, real_walk = fwd_mod.wavefront_forward, sample_mod.sample_walk
+
+    def forward_spy(*args, **kw):
+        out = real_forward(*args, **kw)
+        seen["forward"] = (args, out)
+        return out
+
+    def walk_spy(*args, **kw):
+        out = real_walk(*args, **kw)
+        seen.setdefault("walk", (args, out))
+        return out
+
+    reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats(dev)
+    spies = {"wavefront_forward": forward_spy, "sample_walk": walk_spy} if cell else {}
+    t0 = time.perf_counter()
+    with wrappers(spies), KernelTimer(dev) as timer:
+        rc = cli.main(argv + ["-o", str(outs[0])])
+    wall = time.perf_counter() - t0
+    launches = {name: launch_counts()[name]
+                for name in ("wavefront_forward", "sample_walk")}
+    peak = torch.cuda.max_memory_allocated(dev)
+    if rc != 0:
+        raise AssertionError(f"sample failed: rc={rc}")
+    if min(launches.values()) == 0:
+        raise AssertionError(f"a kernel of the sampling path never launched: {launches}")
+    distinct = _check_samples(outs[0], a, b, n)
+    t0 = time.perf_counter()
+    if cli.main(argv + ["-o", str(outs[1])]) != 0:
+        raise AssertionError("the second sample run failed")
+    wall2 = time.perf_counter() - t0
+    if outs[0].read_bytes() != outs[1].read_bytes():
+        raise AssertionError("sample: one seed gave two outputs")
+    fwd_ms = timer.seconds("wavefront_forward") * 1e3
+    walk_ms = timer.seconds("sample_walk") * 1e3
+    say("sample", f"[{card}] {len(a)} x {len(b)} nt, {n} samples through sample: "
+        f"{wall:.2f} s wall = {n / wall:.1f} samples/s (again {wall2:.2f} s, the "
+        f"same {outs[0].stat().st_size} bytes); Forward {fwd_ms:.1f} ms over "
+        f"{launches['wavefront_forward']} launch, walk {walk_ms:.1f} ms over "
+        f"{launches['sample_walk']} (CUDA events): the card busy "
+        f"{(fwd_ms + walk_ms) / 1e3 / wall:.1%} of the wall; peak device memory "
+        f"{peak / 2**20:.1f} MiB; every sample ungaps to its inputs, {distinct} "
+        f"distinct alignments")
+    out = {"launches": launches, "wall": wall, "n": n}
+    if cell:
+        out.update(_sample_cell(dev, a, b, seen))
+    for path in outs:
+        path.unlink()
+    return out
+
+
+def _timed_once(fn):
+    """(fn(), its milliseconds by CUDA events), no warm-up."""
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def _sample_cell(dev, a, b, seen):
+    """The Forward kernel and the sample walk at the sample phase's first
+    shape, on what the run itself gave them."""
+    from coati_tpu_torch import native
+
+    aln = alignment_params()
+    fargs, (adj, mdi) = seen["forward"]
+    wargs, (ops_k, sc_k) = seen["walk"]
+    enc_a, enc_b = _trimmed_encoding(a, b)
+    t0 = time.perf_counter()
+    want = native.forward_score(enc_a, enc_b, aln.subst_matrix, aln.gap)
+    native_s = time.perf_counter() - t0
+    got = float(adj.max())
+    if not abs(got - want) <= FWD_ATOL + FWD_RTOL * abs(want):
+        raise AssertionError(f"sample cell: the Forward's corner {got} is not "
+                             f"native.forward_score's {want}")
+    k = int(aln.gap.len)
+    cells = (len(enc_a) + k) * (len(enc_b) + k)
+    # each plain version runs once, timed as it runs: 20,000 diagonals or
+    # steps of some 60 launches each take tens of seconds
+    (adj_p, mdi_p), forward_plain_ms = _timed_once(
+        lambda: fwd_mod.forward_plain(*fargs, k=k))
+    # the run wrote the adjusted corner into its matrices: compare the rest
+    mdi_p[0, -1, -1] = adj_p[:, 0]
+    abs_err, rel_err = forward_difference(mdi_p, mdi, "sample cell: Forward")
+    forward_difference(adj_p, adj, "sample cell: corners")
+    del mdi_p
+    (ops_p, sc_p), walk_plain_ms = _timed_once(
+        lambda: sample_paths_plain(*wargs, k=k))
+    walk_err = compare_walks("at the sample phase's shape", ops_k, sc_k, ops_p, sc_p)
+    steps = int((ops_k >= 0).sum())
+    n = ops_k.shape[1]
+    in_bytes = sum(t.numel() * t.element_size() for t in fargs)
+    res = {
+        "forward_err": abs_err, "walk_err": walk_err,
+        "forward_ms": elapsed_ms(lambda: fwd_mod.wavefront_forward(*fargs, k=k), dev, 3),
+        "forward_plain_ms": forward_plain_ms,
+        "walk_ms": elapsed_ms(lambda: sample_mod.sample_walk(*wargs, k=k), dev, 5),
+        "walk_plain_ms": walk_plain_ms,
+        # inputs in; 12 B a cell and the corners out
+        "forward_bound": bound(in_bytes + 12 * cells + 12, cells * CELL_OPS_FORWARD),
+        # a step reads two cells of 12 B, its uniform, two codes and a table
+        # entry; the ops buffer and the scores are written once
+        "walk_bound": bound(steps * (24 + 4 + 8 + 4) + 4 * n + ops_k.numel() + 4 * n,
+                            steps * STEP_OPS_WALK),
+    }
+    say("sample", f"cell {len(enc_a)} x {len(enc_b)} nt, {n} samples: the largest "
+        f"adjusted corner {got} against native.forward_score {want} "
+        f"({native_s:.2f} s on the host); Forward kernel {res['forward_ms']:.1f} ms "
+        f"({cells / res['forward_ms'] / 1e6:.2f} Gcells/s), plain "
+        f"{res['forward_plain_ms']:.1f} ms, {cells} cells within {abs_err:.3e} "
+        f"(relative {rel_err:.3e}); walk of {steps} steps {res['walk_ms']:.3f} ms, "
+        f"plain {res['walk_plain_ms']:.1f} ms")
+    return res
+
+
+def run_sample_host(dev, card, tmp):
+    """The native route of sample on the card's host: a pair under 4,000,000
+    cells, and native.sample_anchor (Forward and tracebacks, no strings)
+    beside it."""
+    from coati_tpu_torch import native
+
+    nt, n, seed = SAMPLE_HOST_RUN
+    (a, b), = make_pairs(1, np.random.default_rng(seed), length_mix=[(nt, 1.0)])
+    src = Path(tmp) / "pair_host.fasta"
+    out = Path(tmp) / "samples_host.json"
+    src.write_text(f">anc\n{a}\n>des\n{b}\n")
+    native.available()  # built before the clock starts
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    rc = cli.main(["sample", str(src), "-n", str(n), "-s", str(seed), "-o", str(out),
+                   "--device", dev.type])
+    wall = time.perf_counter() - t0
+    if rc != 0 or max(launch_counts().values()) != 0:
+        raise AssertionError(f"host sample: rc={rc}, launches {launch_counts()}")
+    distinct = _check_samples(out, a, b, n)
+    aln = alignment_params()
+    enc_a, enc_b = _trimmed_encoding(a, b)
+    t0 = time.perf_counter()
+    native.sample_anchor(enc_a, enc_b, aln.subst_matrix, aln.gap, n, seed=seed)
+    anchor = time.perf_counter() - t0
+    say("sample", f"[{card}] host route: {len(a)} x {len(b)} nt, {n} samples through "
+        f"sample in {wall:.3f} s = {n / wall:.1f} samples/s on the card's host, no "
+        f"kernel launched, {distinct} distinct alignments; native.sample_anchor "
+        f"alone {anchor:.3f} s = {n / anchor:.1f} samples/s")
+
+
+def phase_sample(dev, card):
+    with tempfile.TemporaryDirectory() as tmp:
+        runs = [run_sample(dev, card, tmp, *shape, cell=(i == 0))
+                for i, shape in enumerate(SAMPLE_RUNS)]
+        run_sample_host(dev, card, tmp)
+    return runs[0]
+
+
+# --- phase 8: msa -------------------------------------------------------------
+def run_msa(dev, tmp, n_leaves, nt, seed):
+    """make_msa_inputs through the CLI's msa on the card: (output text, wall
+    seconds, the inputs' sequences)."""
+    fasta, newick, ref, seqs = make_msa_inputs(n_leaves, nt, seed)
+    src, tree, out = (Path(tmp) / f"msa{n_leaves}.{ext}"
+                      for ext in ("fasta", "newick", "out.fasta"))
+    src.write_text(fasta)
+    tree.write_text(newick)
+    t0 = time.perf_counter()
+    rc = cli.main(["msa", str(src), str(tree), ref, "-o", str(out),
+                   "--device", dev.type])
+    wall = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"msa failed: rc={rc}")
+    return out.read_text(), wall, seqs
+
+
+def phase_msa(dev, card):
+    golden = json.loads(MSA_GOLDEN.read_text())
+    with tempfile.TemporaryDirectory() as tmp:
+        text, _, _ = run_msa(dev, tmp, *MSA_GOLDEN_SHAPE, golden["seed"])
+        if msa_golden_record(text) != golden["record"]:
+            raise AssertionError(f"msa of the small tree: {msa_golden_record(text)} "
+                                 f"!= JAX reference {golden['record']}")
+        reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats(dev)
+        with KernelTimer(dev) as timer:
+            text, wall, seqs = run_msa(dev, tmp, *MSA_SHAPE, 9)
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    data = read_fasta(io.StringIO(text))
+    names, rows = data.names, data.seqs
+    if names != list(seqs) or min(len(r) for r in rows) < len(seqs["ref"]):
+        raise AssertionError("msa: rows are not the inputs' in order, each at "
+                             "least as long as the reference")
+    for name, row in zip(names, rows):
+        if row.replace("-", "") != seqs[name]:
+            raise AssertionError(f"msa: row {name} does not ungap to its leaf")
+    if launches["wavefront_fill"] == 0 or launches["traceback_walk"] == 0:
+        raise AssertionError(f"msa launched no fill or walk: {launches}")
+    fill_ms, walk_ms = (timer.seconds(n) * 1e3 for n in ("wavefront_fill", "traceback_walk"))
+    say("msa", f"[{card}] {len(rows)} sequences ({MSA_SHAPE[0]} leaves of "
+        f"~{MSA_SHAPE[1]} nt, as many tables) through msa: {wall:.2f} s wall, "
+        f"rows of {min(len(r) for r in rows)}-{max(len(r) for r in rows)} columns "
+        f"({len({len(r) for r in rows})} lengths: merge_indels' fault, see "
+        f"make_msa_inputs); fill {fill_ms:.1f} ms over "
+        f"{launches['wavefront_fill']} launches, walk {walk_ms:.1f} ms over "
+        f"{launches['traceback_walk']} (CUDA events): the card busy "
+        f"{(fill_ms + walk_ms) / 1e3 / wall:.1%} of the wall; peak device memory "
+        f"{peak / 2**20:.1f} MiB; every row ungaps to its leaf; the small tree "
+        f"equals the JAX reference's output")
 
 
 def run_longpair(dev, card, nt):
@@ -1087,12 +1577,16 @@ def main() -> int:
     phase_build()
     main_shape, fill_err, walk_err = phase_kernels(dev)
     seg_err, seg_walk_err = phase_segment_kernels(dev)
+    fwd_err, sample_walk_err = phase_sample_kernels(dev)
     main_run = phase_main(dev)
     long_run = phase_long(dev, main_run["named"])
     run_longpair(dev, card, LONGPAIR_NT)
-    phase_numbers(card, main_shape, main_run, long_run, score_cell(dev),
+    sample_run = phase_sample(dev, card)
+    phase_msa(dev, card)
+    phase_numbers(card, main_shape, main_run, long_run, score_cell(dev), sample_run,
                   {"fill": fill_err, "walk": walk_err, "segment": seg_err,
-                   "segment_walk": seg_walk_err})
+                   "segment_walk": seg_walk_err, "forward": fwd_err,
+                   "sample_walk": sample_walk_err})
     bad = sorted(m for m in sys.modules
                  if m.split(".")[0] in ("jax", "jaxlib", "coati_tpu", "bench"))
     if bad:

@@ -5,7 +5,7 @@ Counterpart of coati_tpu/align/engine.py. Pairs are bucketed by padded
 shape and chunked by cell count; each chunk runs the Viterbi fill and the
 traceback walk back to back on one stream, the backpointer stack never
 leaves the device, and only the op codes and scores are copied to the host,
-where the aligned strings are built. A pair whose backpointer stack would
+where the native library builds the aligned strings. A pair whose backpointer stack would
 pass the budget of align/longseq.py goes, grouped with pairs of similar
 size, through the segmented two-pass path there. Every chunk and then every
 group is enqueued before the first result is read, so the device works
@@ -39,10 +39,22 @@ def _round_up(x: int, q: int) -> int:
 
 
 def ops_to_strings(ops_fwd, score, a_strs, b_strs, k):
-    """Aligned strings from forward-ordered op codes.
+    """Aligned strings from forward-ordered op codes, built in one pass of
+    the native library (native.ops_to_strings_native), as
+    coati_tpu/align/engine.py ops_to_strings does. A library that does not
+    build raises; ops_to_strings_plain is the numpy version it is held to.
 
     ops_fwd: [steps, B] int8 with -1 padding (leading, since the walk ran
     backward and was reversed)."""
+    from coati_tpu_torch import native
+
+    pairs = native.ops_to_strings_native(ops_fwd, a_strs, b_strs, k)
+    return [AlignResult(s0, s1, float(score[p]))
+            for p, (s0, s1) in enumerate(pairs)]
+
+
+def ops_to_strings_plain(ops_fwd, score, a_strs, b_strs, k):
+    """The numpy version of ops_to_strings, one pair at a time."""
     results = []
     for p in range(ops_fwd.shape[1]):
         ops = ops_fwd[:, p]

@@ -1,8 +1,9 @@
-"""Plain PyTorch versions of the marginal Viterbi fill and traceback walk.
+"""Plain PyTorch versions of the marginal Viterbi fill, the Forward fill and
+the traceback walk.
 
-Counterpart of coati_tpu/align/wavefront.py (viterbi and score modes,
-tropical semiring, any gap length k, whole matrix or one segment of
-diagonals from a carried ring). These are the reference the CUDA kernels in
+Counterpart of coati_tpu/align/wavefront.py (viterbi, score and forward
+modes, tropical and log semirings, any gap length k, whole matrix or one
+segment of diagonals from a carried ring). These are the reference the CUDA kernels in
 coati_tpu_torch/kernels are held against, and the path the kernel wrappers
 take for tensors on the CPU. They keep the JAX version's layout and f32
 operation order so that corners, backpointers and walks are bit-equal:
@@ -18,6 +19,14 @@ operation order so that corners, backpointers and walks are bit-equal:
   default gap parameters (ge = -0.18, a multiple of 2^-26; go and ng+go
   near -6.9, multiples of 2^-21) it needs 18 + 26 = 44 bits at i = 165,000
   and 50 at i = 2^24, so the one rounding to f32 gives the FMA's value.
+
+In the log semiring (Forward) the sums are the reference's piecewise
+logSumExp, lse: its exp and log1p differ in the last place between XLA:CPU,
+torch on the CPU, torch on CUDA and a hand kernel, so Forward values are held
+to a tolerance relative to their magnitude, never to bit-equality; every
+other operation keeps the order above. Forward mode returns every cell's M,
+D, I in row layout, mdi [B, R, C, 3] f32 with cell (i, j) at [p, i, j]: the
+layout the sample walk reads (a cell's three values in one 12-byte load).
 
 The backpointer output is [B, n_steps, C] uint8 (pair-major), row d - d_start
 for diagonal d; the whole matrix has Dtot = NA+NB+2k-1 diagonals. Byte bits
@@ -62,24 +71,41 @@ def argmax_mdi(m, d, i):
     return torch.where(i > best, torch.full_like(code, 2), code)
 
 
+def lse(a, b):
+    """f32 logSumExp in the reference's piecewise form (wavefront.py:56-66):
+    max + exp(y) for y = -|a - b| <= -16, else max + log1p(exp(y))."""
+    mx = torch.maximum(a, b)
+    y = -(a - b).abs()
+    t = torch.where(y <= -16.0, torch.exp(y),
+                    torch.log1p(torch.exp(torch.clamp(y, max=0.0))))
+    return mx + t
+
+
 def wavefront_plain(aseq, bseq, lens_a, lens_b, table, gap_consts, *, k: int,
-                    mode: str = "viterbi", d_start: int = 0,
+                    mode: str = "viterbi", semiring: str = "tropical",
+                    d_start: int = 0,
                     n_steps: int | None = None, ring_init=None,
                     corner_init=None, return_carry: bool = False):
-    """Viterbi fill, one loop step per anti-diagonal: the whole matrix, or
-    diagonals [d_start, d_start + n_steps) from a carried ring.
+    """Viterbi or Forward fill, one loop step per anti-diagonal: the whole
+    matrix, or diagonals [d_start, d_start + n_steps) from a carried ring.
 
     aseq [B, NA] int (< table rows), bseq [B, NB] int (< 16), lens [B] int,
     table [rows, 15] f32, gap_consts [4] f32. mode "viterbi" also returns the
     packed backpointers bp [B, n_steps, C] uint8, mode "score" None in
-    their place. ring_init [K, 3, B, C] f32 holds diagonals d_start-1 ..
+    their place, mode "forward" (whole matrix only) every cell's values
+    mdi [B, NA+k, C, 3] f32. semiring "tropical" adds with max, "log" with
+    lse. ring_init [K, 3, B, C] f32 holds diagonals d_start-1 ..
     d_start-K (K = max(k, 2)), corner_init the raw corners (cM, cD, cI)
     captured so far; both default to LOWEST. Returns (adj, bp), adj the
     terminal-adjusted corners [B] f32 (meaningful once every pair's corner
     diagonal has run); with return_carry (adj, bp, (ring, raw corners)) to
     start the next segment from."""
-    if mode not in ("viterbi", "score"):
-        raise ValueError(f"mode must be 'viterbi' or 'score', got {mode!r}")
+    if mode not in ("viterbi", "score", "forward"):
+        raise ValueError(
+            f"mode must be 'viterbi', 'score' or 'forward', got {mode!r}")
+    if semiring not in ("tropical", "log"):
+        raise ValueError(f"semiring must be 'tropical' or 'log', got {semiring!r}")
+    plus2 = torch.maximum if semiring == "tropical" else lse
     B, NA = aseq.shape
     NB = bseq.shape[1]
     dev = aseq.device
@@ -88,6 +114,8 @@ def wavefront_plain(aseq, bseq, lens_a, lens_b, table, gap_consts, *, k: int,
     Dtot = R + C - 1
     if n_steps is None:
         n_steps = Dtot
+    if mode == "forward" and (d_start != 0 or n_steps != Dtot):
+        raise ValueError("forward mode runs the whole matrix only")
     K = max(k, 2)
     ng, gs, go, ge = (gap_consts[q] for q in range(4))
     gek1 = ge * float(k - 1)
@@ -116,6 +144,8 @@ def wavefront_plain(aseq, bseq, lens_a, lens_b, table, gap_consts, *, k: int,
     bp = None
     if mode == "viterbi":
         bp = torch.empty((B, n_steps, C), dtype=torch.uint8, device=dev)
+    elif mode == "forward":  # mdi takes bp's place in what is returned
+        bp = torch.empty((B, R, C, 3), dtype=torch.float32, device=dev)
     # insert-row margin values and mask depend on j only
     i_marg_j = margin_values(go, ge, j_iota)
     ins_ok_j = (j_iota >= 2 * k - 1) & ((j_iota - (k - 1)) % k == 0)
@@ -144,9 +174,9 @@ def wavefront_plain(aseq, bseq, lens_a, lens_b, table, gap_consts, *, k: int,
         m2i = (pkMs + go) + gek1
         i2i = pkIs + gek
 
-        M = torch.maximum(torch.maximum(m2m, d2m), i2m)
-        D = torch.maximum(torch.maximum(m2d, d2d), i2d)
-        I = torch.maximum(m2i, i2i)
+        M = plus2(plus2(m2m, d2m), i2m)
+        D = plus2(plus2(m2d, d2d), i2d)
+        I = plus2(m2i, i2i)
 
         body = (i_vec >= k) & (i_vec < R) & (j_iota >= k)
         m_marg = torch.where((i_vec == k - 1) & (j_iota == k - 1), 0.0, LOWEST)
@@ -164,7 +194,11 @@ def wavefront_plain(aseq, bseq, lens_a, lens_b, table, gap_consts, *, k: int,
 
         ring = [(M, D, I)] + ring[: K - 1]
 
-        if bp is not None:
+        if mode == "forward":
+            in_rows = (i_vec >= 0) & (i_vec < R)
+            bp[:, i_vec[in_rows], j_iota[in_rows]] = torch.stack(
+                (M, D, I), dim=-1)[:, in_rows]
+        elif bp is not None:
             bp_m = argmax_mdi((p2M + ng) + ng, p2D + gs, (p2I + gs) + ng)
             bp_d = argmax_mdi((pkM + ng) + go, pkD + ge, (pkI + gs) + go)
             bp_i = torch.where(pkMs + go > pkIs + ge, 0, 2).to(torch.uint8)

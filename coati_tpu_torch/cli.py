@@ -1,9 +1,11 @@
 """Command-line interface: coati-tpu-torch <verb> (counterpart of
 coati_tpu/cli.py).
 
-Ported verbs: alignpair (marginal models, and -s scoring) and batch. Both
-take --device {cuda,cpu}, default cuda; asking for cuda where there is none
-is an error, not a silent move to the CPU.
+All seven verbs, for the marginal models: alignpair (and -s scoring), msa,
+sample, format, genseed, version, batch. Those that align take --device
+{cuda,cpu}, default cuda; asking for cuda where there is none is an error,
+not a silent move to the CPU. Not ported: the triplet models, --multihost,
+--trace-dir.
 """
 
 from __future__ import annotations
@@ -15,7 +17,6 @@ from coati_tpu_torch.models.marginal import AmbiguousNucs, MarginalSubst
 from coati_tpu_torch.structs import AlignmentParams
 
 PROG = "coati-tpu-torch"
-NOT_PORTED = ("msa", "sample", "format", "genseed", "version")
 
 
 def _positive_float(s: str) -> float:
@@ -113,13 +114,137 @@ def cmd_alignpair(argv) -> int:
     return 0 if marg_alignment(aln, device=args.device) else 1
 
 
+def _seeded_rng(seeds):
+    """A Lehmer64 seeded from the seed strings, or from the clock and the
+    process when there are none."""
+    from coati_tpu_torch.rng import (
+        Lehmer64,
+        auto_seed_seq,
+        seed_random,
+        string_seed_seq,
+    )
+
+    rng = Lehmer64()
+    seed_random(rng, string_seed_seq(seeds) if seeds else auto_seed_seq())
+    return rng
+
+
+def cmd_sample(argv) -> int:
+    p = argparse.ArgumentParser(
+        prog=f"{PROG} sample",
+        description="coati sample - align two sequences and sample alignments",
+    )
+    _add_model_opts(p, "Substitution model (mar-mg mar-ecm)")
+    p.add_argument("-n", "--sample-size", type=int, default=1, help="Sample size")
+    p.add_argument("-s", "--seed", nargs="+", default=[],
+                   help="Space separated list of seed(s) used for sampling")
+    _add_device_opt(p)
+    args = p.parse_args(argv)
+    if args.rate and args.model != "mar-mg":
+        p.error("--sub excludes --model")
+
+    aln = _fill_aln(args)
+    if not aln.is_marginal():
+        print(
+            "ERROR: Sampling only available with models mar-mg or mar-ecm.",
+            file=sys.stderr,
+        )
+        return 1
+
+    from coati_tpu_torch.driver import marg_sample
+
+    marg_sample(aln, args.sample_size, _seeded_rng(args.seed),
+                device=args.device)
+    return 0
+
+
+def cmd_msa(argv) -> int:
+    p = argparse.ArgumentParser(
+        prog=f"{PROG} msa",
+        description="coati msa - multiple sequence alignment of nucleotide sequences",
+    )
+    _add_model_opts(p, "Substitution model (mar-mg mar-ecm)")
+    p.add_argument("tree", help="Newick phylogenetic tree")
+    p.add_argument("reference", help="Name of reference sequence")
+    _add_device_opt(p)
+    args = p.parse_args(argv)
+
+    aln = _fill_aln(args)
+    aln.tree = args.tree
+    aln.refs = args.reference
+
+    from coati_tpu_torch.msa.msa import ref_indel_alignment
+
+    return 0 if ref_indel_alignment(aln, device=args.device) else 1
+
+
+def cmd_format(argv) -> int:
+    p = argparse.ArgumentParser(
+        prog=f"{PROG} format",
+        description="coati format - convert between formats, extract or reorder sequences",
+    )
+    p.add_argument("input", help="Input file (FASTA/PHYLIP/JSON accepted)")
+    p.add_argument("-o", "--output", default="", help="Alignment output file")
+    p.add_argument("-p", "--preserve-phase", action="store_true",
+                   help="Preserve phase")
+    p.add_argument("-c", "--padding", default=None,
+                   help="Padding char to format preserve phase")
+    p.add_argument("-s", "--cut-seqs", nargs="+", default=[],
+                   help="Name of sequences to extract")
+    p.add_argument("-x", "--cut-pos", type=int, nargs="+", default=[],
+                   help="Position of sequences to extract (1 based)")
+    args = p.parse_args(argv)
+    if args.cut_seqs and args.cut_pos:
+        p.error("-x excludes -s")
+    if args.padding is not None and not args.preserve_phase:
+        # CLI11: padding option ->needs(phase) (utils.cc:443-445)
+        p.error("-c/--padding needs -p/--preserve-phase")
+
+    from coati_tpu_torch.format import FormatArgs, format_sequences
+    from coati_tpu_torch.io import read_input
+
+    aln = AlignmentParams()
+    aln.data.path = args.input
+    aln.output = args.output
+    aln.data = read_input(aln)
+    fmt = FormatArgs(
+        preserve_phase=args.preserve_phase,
+        padding=args.padding if args.padding is not None else "?",
+        names=list(args.cut_seqs),
+        pos=list(args.cut_pos),
+    )
+    return format_sequences(fmt, aln)
+
+
+def cmd_genseed(argv) -> int:
+    from coati_tpu_torch.rng import encode_seed
+
+    print(encode_seed(_seeded_rng(argv).get_seed_u32x4()))
+    return 0
+
+
+def cmd_version(argv) -> int:
+    from coati_tpu_torch.version import __version__
+
+    print(f"{PROG} v{__version__}")
+    return 0
+
+
 def cmd_batch(argv) -> int:
     from coati_tpu_torch.batchrun import cmd_batch as run
 
     return run(argv)
 
 
-VERBS = {"alignpair": cmd_alignpair, "batch": cmd_batch}
+VERBS = {
+    "alignpair": cmd_alignpair,
+    "msa": cmd_msa,
+    "sample": cmd_sample,
+    "format": cmd_format,
+    "genseed": cmd_genseed,
+    "version": cmd_version,
+    "batch": cmd_batch,
+}
 
 
 def main(argv=None) -> int:
@@ -130,10 +255,6 @@ def main(argv=None) -> int:
             print(f"  {v}")
         return 0 if argv else 1
     verb = argv[0]
-    if verb in NOT_PORTED:
-        print(f"ERROR: command {verb} is not yet ported to {PROG} "
-              "(ROADMAP.md, Modules to port, item 5).", file=sys.stderr)
-        return 1
     if verb not in VERBS:
         print(f"ERROR: command {verb} not supported.", file=sys.stderr)
         return 1
@@ -146,7 +267,7 @@ def main(argv=None) -> int:
         return VERBS[verb](argv[1:])
     except SystemExit as exc:  # argparse validation errors (exit code 2)
         return int(exc.code) if exc.code else 0
-    except (ValueError, RuntimeError, OSError) as exc:
+    except (ValueError, RuntimeError, OSError, MemoryError) as exc:
         print(f"ERROR: {exc}", file=sys.stderr)
         return 1
 

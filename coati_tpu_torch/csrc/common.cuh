@@ -1,6 +1,6 @@
-// Shared helpers of the marginal Viterbi kernels: the semiring zero, the
-// state preference, and the one cell update that the fill, segment and
-// score kernels all run.
+// Shared helpers of the marginal pair-HMM kernels: the semiring zero, the
+// state preference, the log semiring's sum, and the one cell update that the
+// fill, segment, score and Forward kernels all run.
 #pragma once
 
 #include <cfloat>
@@ -18,6 +18,23 @@ constexpr float kLowest = -FLT_MAX;
 __device__ __forceinline__ unsigned argmax_mdi(float m, float d, float i) {
   const unsigned code = (d > m) ? 1u : 0u;
   return (i > fmaxf(m, d)) ? 2u : code;
+}
+
+// The log semiring's sum: f32 logSumExp in the reference's piecewise form
+// (coati_tpu/align/wavefront.py:56-66, _lse), the -16 threshold kept. expf
+// and log1pf differ from XLA:CPU's and torch's in the last place, so what
+// is built from it is held to a tolerance, not to bit-equality.
+__device__ __forceinline__ float lse(float a, float b) {
+  const float mx = fmaxf(a, b);
+  const float y = -fabsf(__fsub_rn(a, b));
+  const float t = (y <= -16.0f) ? expf(y) : log1pf(expf(fminf(y, 0.0f)));
+  return __fadd_rn(mx, t);
+}
+
+// The semiring's sum: max (tropical, Viterbi) or lse (log, Forward).
+template <bool kLog>
+__device__ __forceinline__ float plus2(float a, float b) {
+  return kLog ? lse(a, b) : fmaxf(a, b);
 }
 
 // Gap constants (ng, gs, go, ge) and the products the recurrence uses.
@@ -52,14 +69,14 @@ __device__ __forceinline__ float ring_load(const float* p) {
 // planes of diagonals d-2 (r2) and d-k (rk), each M, D, I planes of C slots.
 // a and b are the pair's sequences, tab the [rows, 15] table. Writes M, D, I
 // and returns the packed backpointer byte. Every add is the reference's, in
-// its order (coati_tpu/align/wavefront.py:182-195); maxima nest as
-// fmaxf(fmaxf(a, b), c); the backpointers use the comparands of :218-220;
+// its order (coati_tpu/align/wavefront.py:182-195); the semiring's sums
+// (max, or with kLog lse) nest as plus2(plus2(a, b), c); the backpointers use the comparands of :218-220;
 // the two margin formulas are one explicitly rounded FMA each, as XLA:CPU
 // computes them (:154, :160). Predecessors left of or above the matrix hold
 // LOWEST, as the reference's shifted-in slots do. Compile with -fmad=false.
 // kCg: read the ring past L1 (ld.global.cg), for a ring that blocks on other
-// SMs write.
-template <bool kCg = false>
+// SMs write. The backpointer byte is of use only in the tropical semiring.
+template <bool kCg = false, bool kLog = false>
 __device__ __forceinline__ uint8_t cell_update(
     int i, int j, int k, int C, const float* r2, const float* rk,
     const int32_t* __restrict__ a, const int32_t* __restrict__ b,
@@ -88,11 +105,11 @@ __device__ __forceinline__ uint8_t cell_update(
     // code 15 ('-') has no column: the reference's one-hot sum gives 0
     const int code = b[j - k];
     const float sub = code < 15 ? tab[a[i - k] * 15 + code] : 0.0f;
-    M = fmaxf(fmaxf(__fadd_rn(m2m0, sub), __fadd_rn(d2m0, sub)),
-              __fadd_rn(i2m0, sub));
-    D = fmaxf(fmaxf(__fadd_rn(m2d0, g.gek1), __fadd_rn(pkD, g.gek)),
-              __fadd_rn(i2d0, g.gek1));
-    I = fmaxf(__fadd_rn(m2i0, g.gek1), __fadd_rn(pkIs, g.gek));
+    M = plus2<kLog>(plus2<kLog>(__fadd_rn(m2m0, sub), __fadd_rn(d2m0, sub)),
+                    __fadd_rn(i2m0, sub));
+    D = plus2<kLog>(plus2<kLog>(__fadd_rn(m2d0, g.gek1), __fadd_rn(pkD, g.gek)),
+                    __fadd_rn(i2d0, g.gek1));
+    I = plus2<kLog>(__fadd_rn(m2i0, g.gek1), __fadd_rn(pkIs, g.gek));
   } else {  // margins (wavefront.py:141-161)
     M = (i == k - 1 && j == k - 1) ? 0.0f : kLowest;
     D = (j == k - 1 && i >= 2 * k - 1 && (i - (k - 1)) % k == 0)

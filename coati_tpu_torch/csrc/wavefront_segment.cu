@@ -1,7 +1,7 @@
 // Marginal Gotoh M/D/I Viterbi over a run of anti-diagonals from a carried
 // ring, one or several thread blocks per pair: the segment kernel of the
-// long-pair path
-// and the score-only kernel.
+// long-pair path, the score-only kernel, and the Forward kernel of the
+// sampling path.
 //
 // Replaces the TPU kernels coati_tpu/kernels/wavefront_pallas.py:909
 // wavefront_pallas_segment (with segment_consts :841 and segment_corners
@@ -17,6 +17,16 @@
 // exist for the TPU's lanes and slow gathers and are not carried over: the
 // emission is a direct gather from the table, so the carry is ring +
 // corners only.
+//
+// It also replaces :330 wavefront_pallas with mode="forward" (kernel body
+// :69, plus2 = _lse :115, the diagonals streamed out at :265-269): the
+// log-semiring Forward is the same sweep with lse for max, d0 = 0, every
+// diagonal, and every cell's M, D, I written out instead of a backpointer,
+// a third entry point. It writes the row layout the sample walk reads, mdi
+// [B, NA+k, C, 3] f32 with cell (i, j) at [p, i, j]: 12 bytes a cell, half
+// of what the reference's [Dtot, C] planes take. Along a diagonal those
+// stores are a row apart, so each 12-byte store is a sector of its own;
+// beside the barrier after every diagonal that does not show (see PERF.md).
 //
 // What bounds it on an H100: the serial chain of diagonals of one pair, a
 // barrier each. A long pair's diagonal holds tens of thousands of cells, and
@@ -61,6 +71,7 @@ struct SweepArgs {
   const float *table, *gap, *ring_in, *corners_in;
   float *ring_out, *corners_out, *adj, *scratch;
   uint8_t* bp;
+  float* mdi;  // Forward: every cell's M, D, I, [B, NA+k, C, 3]
   unsigned* sync;  // [B] zeros: the pairs' barrier counters (blocks_per_pair > 1)
   int B, NA, NB, k, d0, T, blocks_per_pair;
 };
@@ -83,8 +94,12 @@ __device__ __forceinline__ void pair_barrier(unsigned* counter, unsigned target)
   __syncthreads();
 }
 
+// What a sweep writes for every cell: nothing, the backpointer byte, or in
+// the log semiring the cell's M, D, I.
+enum Out { kNone = 0, kBp = 1, kMdi = 2 };
+
 // kMulti: blocks_per_pair blocks sweep each pair (ring in global memory).
-template <bool kRingShared, bool kWantBp, bool kMulti>
+template <bool kRingShared, Out kOut, bool kMulti>
 __global__ void __launch_bounds__(1024) wavefront_sweep_kernel(const SweepArgs x) {
   extern __shared__ float smem[];
   const int p = kMulti ? blockIdx.x / x.blocks_per_pair : blockIdx.x;
@@ -127,7 +142,9 @@ __global__ void __launch_bounds__(1024) wavefront_sweep_kernel(const SweepArgs x
   float* adj = x.adj;
   const int d_last = rows + cols - 2;  // the corner's diagonal
   const int d_end = min(d0 + T - 1, d_last);
-  uint8_t* bpp = kWantBp ? x.bp + (size_t)p * T * C : nullptr;
+  uint8_t* bpp = kOut == kBp ? x.bp + (size_t)p * T * C : nullptr;
+  float* mdip =
+      kOut == kMdi ? x.mdi + (size_t)p * (x.NA + k) * C * 3 : nullptr;
 
   if (tid == 0 && !(d0 <= d_last && d_last <= d_end)) {
     // no corner in this segment: the raw corners pass through
@@ -153,12 +170,18 @@ __global__ void __launch_bounds__(1024) wavefront_sweep_kernel(const SweepArgs x
     for (int j = j_lo + tid; j <= j_hi; j += nthr) {
       const int i = d - j;
       float M, D, I;
-      const uint8_t code = coati::cell_update<kMulti>(i, j, k, C, r2, rk, a, b,
-                                                      table, g, M, D, I);
+      const uint8_t code = coati::cell_update<kMulti, kOut == kMdi>(
+          i, j, k, C, r2, rk, a, b, table, g, M, D, I);
       cur[j] = M;
       cur[C + j] = D;
       cur[2 * C + j] = I;
-      if (kWantBp) bpp[(size_t)(d - d0) * C + j] = code;
+      if (kOut == kBp) bpp[(size_t)(d - d0) * C + j] = code;
+      if (kOut == kMdi) {
+        float* cell = mdip + ((size_t)i * C + j) * 3;
+        cell[0] = M;
+        cell[1] = D;
+        cell[2] = I;
+      }
 
       if (d == d_last) {  // the corner is the last diagonal's only cell
         if (x.corners_out) {
@@ -192,9 +215,9 @@ __global__ void __launch_bounds__(1024) wavefront_sweep_kernel(const SweepArgs x
   }
 }
 
-template <bool kRingShared, bool kWantBp, bool kMulti>
+template <bool kRingShared, Out kOut, bool kMulti>
 int launch(const SweepArgs& x, int threads, cudaStream_t stream) {
-  auto kernel = wavefront_sweep_kernel<kRingShared, kWantBp, kMulti>;
+  auto kernel = wavefront_sweep_kernel<kRingShared, kOut, kMulti>;
   const int K = x.k > 2 ? x.k : 2;
   const size_t smem =
       kRingShared ? (size_t)(K + 1) * 3 * (x.NB + x.k) * sizeof(float) : 0;
@@ -215,20 +238,16 @@ int launch(const SweepArgs& x, int threads, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-int dispatch(const SweepArgs& x, bool ring_shared, bool want_bp, int threads,
-             void* stream) {
+template <Out kOut>
+int dispatch(const SweepArgs& x, bool ring_shared, int threads, void* stream) {
   if (x.B == 0 || x.T <= 0) return 0;
   auto s = static_cast<cudaStream_t>(stream);
   if (x.blocks_per_pair > 1) {
     if (ring_shared || x.sync == nullptr) return (int)cudaErrorInvalidValue;
-    return want_bp ? launch<false, true, true>(x, threads, s)
-                   : launch<false, false, true>(x, threads, s);
+    return launch<false, kOut, true>(x, threads, s);
   }
-  if (ring_shared)
-    return want_bp ? launch<true, true, false>(x, threads, s)
-                   : launch<true, false, false>(x, threads, s);
-  return want_bp ? launch<false, true, false>(x, threads, s)
-                 : launch<false, false, false>(x, threads, s);
+  return ring_shared ? launch<true, kOut, false>(x, threads, s)
+                     : launch<false, kOut, false>(x, threads, s);
 }
 
 }  // namespace
@@ -250,9 +269,11 @@ extern "C" int coati_wavefront_segment(
       static_cast<const float*>(ring_in),   static_cast<const float*>(corners_in),
       static_cast<float*>(ring_out),        static_cast<float*>(corners_out),
       static_cast<float*>(adj),             static_cast<float*>(ring_scratch),
-      static_cast<uint8_t*>(bp),            static_cast<unsigned*>(sync),
+      static_cast<uint8_t*>(bp),            nullptr,
+      static_cast<unsigned*>(sync),
       B, NA, NB, k, d0, T, blocks_per_pair};
-  return dispatch(x, ring_shared != 0, want_bp != 0, threads, stream);
+  return want_bp ? dispatch<kBp>(x, ring_shared != 0, threads, stream)
+                 : dispatch<kNone>(x, ring_shared != 0, threads, stream);
 }
 
 // Score-only Viterbi: every diagonal from an empty ring, adjusted corners
@@ -268,7 +289,27 @@ extern "C" int coati_wavefront_score(
       static_cast<const float*>(table),    static_cast<const float*>(gap_consts),
       nullptr, nullptr, nullptr, nullptr,
       static_cast<float*>(adj),            static_cast<float*>(ring_scratch),
-      nullptr,                             static_cast<unsigned*>(sync),
+      nullptr, nullptr,                    static_cast<unsigned*>(sync),
       B, NA, NB, k, 0, NA + NB + 2 * k - 1, blocks_per_pair};
-  return dispatch(x, ring_shared != 0, false, threads, stream);
+  return dispatch<kNone>(x, ring_shared != 0, threads, stream);
+}
+
+// Log-semiring Forward: every diagonal from an empty ring, every cell's M, D,
+// I of each pair's true (la+k) x (lb+k) rectangle, margins included, to mdi
+// [B, NA+k, NB+k, 3] (cells outside a pair's rectangle are not written), the
+// adjusted corners [3, B] to adj.
+extern "C" int coati_wavefront_forward(
+    const void* aseq, const void* bseq, const void* lens_a, const void* lens_b,
+    const void* table, const void* gap_consts, void* adj, void* ring_scratch,
+    void* sync, void* mdi, int B, int NA, int NB, int k, int ring_shared,
+    int blocks_per_pair, int threads, void* stream) {
+  const SweepArgs x = {
+      static_cast<const int32_t*>(aseq),   static_cast<const int32_t*>(bseq),
+      static_cast<const int32_t*>(lens_a), static_cast<const int32_t*>(lens_b),
+      static_cast<const float*>(table),    static_cast<const float*>(gap_consts),
+      nullptr, nullptr, nullptr, nullptr,
+      static_cast<float*>(adj),            static_cast<float*>(ring_scratch),
+      nullptr, static_cast<float*>(mdi),   static_cast<unsigned*>(sync),
+      B, NA, NB, k, 0, NA + NB + 2 * k - 1, blocks_per_pair};
+  return dispatch<kMdi>(x, ring_shared != 0, threads, stream);
 }

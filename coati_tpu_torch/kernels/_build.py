@@ -60,6 +60,11 @@ SIGNATURES = {
     "coati_wavefront_score": [_P] * 9 + [_I] * 7 + [_P],
     # bp adj lens_a lens_b score state ops, B T C k d0 max_steps, stream
     "coati_traceback_walk_segment": [_P] * 7 + [_I] * 6 + [_P],
+    # aseq bseq lens_a lens_b table gap adj ring_scratch sync mdi,
+    # B NA NB k ring_shared blocks_per_pair threads, stream
+    "coati_wavefront_forward": [_P] * 10 + [_I] * 7 + [_P],
+    # mdi enc_a enc_b table gap uniforms ops scores, R Cc k N n_steps, stream
+    "coati_sample_walk": [_P] * 8 + [_I] * 5 + [_P],
 }
 
 _lib = None

@@ -27,7 +27,7 @@ LAUNCHES = 0  # kernel launches made by wavefront_segment
 MULTI_BLOCK_SLOTS = 4096  # slots a pair above which several blocks sweep it
 
 
-def sweep_shape(B: int, C: int, device) -> tuple[int, int]:
+def sweep_shape(B: int, C: int, device, multi_threads: int = 1024) -> tuple[int, int]:
     """(blocks a pair, threads a block) of the sweep of B pairs of C slots.
 
     Pairs of more than MULTI_BLOCK_SLOTS slots, in a group narrower than the
@@ -35,12 +35,17 @@ def sweep_shape(B: int, C: int, device) -> tuple[int, int]:
     whole group on the card at once (one block of 1,024 threads an SM), and
     no more than a full diagonal has cells for. Those blocks meet at a
     barrier in device memory after every diagonal, which costs about as much
-    as a block's pass over 4,096 cells; below that, one block a pair."""
+    as a block's pass over 4,096 cells; below that, one block a pair.
+
+    multi_threads: the threads of each of a pair's several blocks, so the
+    cells of a full diagonal a block takes at least: 1,024 for the Viterbi
+    sweeps, fewer for a sweep whose cells cost more (the Forward)."""
     threads = 1024 if C > 2048 else 256
     if C <= MULTI_BLOCK_SLOTS:
         return 1, threads
     sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return max(1, min(sms // B, -(-C // threads))), threads
+    blocks = min(sms // B, -(-C // multi_threads))
+    return (blocks, multi_threads) if blocks > 1 else (1, threads)
 
 
 def sweep_scratch(B: int, C: int, k: int, blocks: int, device):

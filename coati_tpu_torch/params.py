@@ -85,3 +85,33 @@ def carry_to_numpy(carry):
     ring, corners = carry
     raw = corners.cpu().numpy()
     return ring.cpu().numpy(), (raw[0], raw[1], raw[2])
+
+
+def forward_from_numpy(Ms, Ds, Is, corners, R: int, Cc: int, device):
+    """One pair's Forward matrices in the JAX package's diagonal layout
+    (Ms, Ds, Is each [Dtot, C >= Cc] with cell (i, j) at [i + j, j]; the
+    terminal-adjusted corners (cm, cd, ci)) as the port's: (mdi [R, Cc, 3]
+    f32 with cell (i, j) at [i, j], corners [3] f32) on `device`."""
+    ii = np.arange(R)[:, None]
+    jj = np.arange(Cc)[None, :]
+    mdi = np.stack([np.asarray(S, dtype=np.float32)[ii + jj, jj]
+                    for S in (Ms, Ds, Is)], axis=-1)
+    adj = np.array([float(c) for c in corners], dtype=np.float32)
+    return torch.from_numpy(mdi).to(device), torch.from_numpy(adj).to(device)
+
+
+def forward_to_numpy(mdi, corners):
+    """The port's Forward matrices as the JAX package's: (Ms, Ds, Is each
+    [R + Cc - 1, Cc] with cell (i, j) at [i + j, j], slots outside the
+    matrix LOWEST; (cm, cd, ci) floats)."""
+    m = mdi.cpu().numpy()
+    R, Cc = m.shape[:2]
+    ii = np.arange(R)[:, None]
+    jj = np.arange(Cc)[None, :]
+    planes = []
+    for s in range(3):
+        S = np.full((R + Cc - 1, Cc), C.F32_LOWEST, dtype=np.float32)
+        S[ii + jj, jj] = m[:, :, s]
+        planes.append(S)
+    cm, cd, ci = (float(c) for c in corners)
+    return planes[0], planes[1], planes[2], (cm, cd, ci)

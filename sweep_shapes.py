@@ -14,6 +14,16 @@ diagonal. Last, the whole score-only sweep with the shape the wrapper
 chooses (kernels/wavefront_segment.py sweep_shape, whose rule was set from
 this table). It stands in its own (blocks, threads) for sweep_shape while it
 measures. CUDA events, mean of 2 launches after a warm-up.
+
+Then the same for the Forward entry point of that kernel, which writes 12
+bytes a cell where the segment writes 1: one pair of 9,999 and of 29,397 nt
+(the sizes the sample verb is driven at), the whole matrix, at 1 to 132
+blocks a pair, each shape's corners and M, D, I held to the one-block
+result (they must be equal: a cell's arithmetic does not depend on the
+block that computes it; a difference within FWD_ATOL + FWD_RTOL * |value|
+would be reported, a larger one raises), timed beside the score-only sweep
+at the same shape, with the shape the wrapper chooses
+(kernels/wavefront_forward.py forward_shape) marked.
 """
 
 from __future__ import annotations
@@ -27,13 +37,20 @@ sys.path.insert(0, str(Path(__file__).resolve().parent))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-from coati_tpu_torch.kernels import wavefront_score, wavefront_segment  # noqa: E402
+from coati_tpu_torch.kernels import (  # noqa: E402
+    wavefront_forward,
+    wavefront_score,
+    wavefront_segment,
+)
 from coati_tpu_torch.params import alignment_params, params_from_numpy  # noqa: E402
 
 SEGMENT = 4000  # diagonals of the timed segment
 SIZES = ((8_000, 1), (32_000, 4), (32_000, 1), (160_000, 1))  # (nt, pairs)
 BLOCKS = (1, 4, 8, 16, 33, 132)
 THREADS = (1024, 512)
+FORWARD_SIZES = (9_999, 29_397)  # nt of the one pair
+FORWARD_BLOCKS = (1, 4, 8, 10, 16, 20, 29, 33, 58, 66, 132)
+FWD_RTOL, FWD_ATOL = 4e-6, 2e-5  # chip_smoke.py's, of the Forward's values
 
 
 def elapsed_ms(fn, reps: int = 2) -> float:
@@ -55,6 +72,54 @@ def true_cells(n, d0, T, dev):
     j = torch.arange(n + 1, device=dev)[None, :]
     i = d - j
     return (i >= 1) & (i <= n) & (j >= 1)
+
+
+def forward_table(dev, card, p):
+    """The Forward of one pair at every launch shape, against one block a
+    pair, beside the score-only sweep at the same shape."""
+    chosen = wavefront_score.sweep_shape
+    chosen_forward = wavefront_forward.forward_shape
+    for n in FORWARD_SIZES:
+        rng = np.random.default_rng(1)
+        a = torch.from_numpy(rng.integers(0, 183, (1, n)).astype(np.int32)).to(dev)
+        b = torch.from_numpy(rng.integers(0, 4, (1, n)).astype(np.int32)).to(dev)
+        lens = torch.full((1,), n, dtype=torch.int32, device=dev)
+        args = (a, b, lens, lens, p.table, p.gap_consts)
+        rule = chosen_forward(1, n + 1, dev)
+        try:
+            wavefront_forward.forward_shape = lambda *_: (1, 1024)
+            want_adj, want = wavefront_forward.wavefront_forward(*args, k=1)
+            for threads in THREADS:
+                for blocks in FORWARD_BLOCKS:
+                    shape = (blocks, threads)
+                    wavefront_forward.forward_shape = lambda *_, s=shape: s
+                    adj, mdi = wavefront_forward.wavefront_forward(*args, k=1)
+                    verdict = "equal to"
+                    if not (torch.equal(mdi, want) and torch.equal(adj, want_adj)):
+                        diff = (mdi - want).abs()
+                        worst = float(diff.max())
+                        if bool((diff > FWD_ATOL + FWD_RTOL * want.abs()).any()):
+                            raise AssertionError(
+                                f"Forward {n} nt, {blocks} x {threads} threads: "
+                                f"differs from one block by {worst:.3e}")
+                        verdict = f"within {worst:.3e} of"
+                    del adj, mdi
+                    ms = elapsed_ms(lambda: wavefront_forward.wavefront_forward(
+                        *args, k=1))
+                    wavefront_score.sweep_shape = lambda *_, s=shape: s
+                    score_ms = elapsed_ms(
+                        lambda: wavefront_score.wavefront_score(*args, k=1))
+                    mark = " (forward_shape's choice)" if shape == rule else ""
+                    print(f"[{card}] Forward 1 x {n} nt, {blocks} x {threads} threads"
+                          f"{mark}: {verdict} one block a pair; {ms:.1f} ms = "
+                          f"{ms / (2 * n) * 1e3:.2f} us a diagonal, "
+                          f"{n * n / ms / 1e6:.2f} Gcells/s; score-only sweep "
+                          f"{score_ms:.1f} ms = {score_ms / (2 * n) * 1e3:.2f} us a "
+                          f"diagonal", flush=True)
+        finally:
+            wavefront_score.sweep_shape = chosen
+            wavefront_forward.forward_shape = chosen_forward
+        del want, want_adj
 
 
 def main() -> int:
@@ -120,6 +185,7 @@ def main() -> int:
         print(f"[{card}] {B} x {n} nt, chosen {blocks} x {threads}: score-only sweep "
               f"{ms:.1f} ms = {B * n * n / ms / 1e6:.2f} Gcells/s, "
               f"{ms / (2 * n) * 1e3:.2f} us a diagonal", flush=True)
+    forward_table(dev, card, p)
     return 0
 
 

@@ -75,10 +75,17 @@ def test_batch_matches_jax_cli(tmp_path):
 
 
 def test_not_ported_verbs_and_models_exit_1(tmp_path, capsys):
-    assert torch_cli.main(["msa", "x", "y", "z"]) == 1
-    assert "not yet ported" in capsys.readouterr().err
+    """Every verb is ported now; what is left says so and exits 1: the
+    triplet models and --multihost. msa and sample take marginal models
+    only, as in the JAX package."""
     src = tmp_path / "pair.fasta"
     src.write_text(PAIR)
+    assert sorted(torch_cli.VERBS) == sorted(jax_cli.VERBS)
+    for main in (jax_cli.main, torch_cli.main):
+        assert main(["msa", str(src), "y", "z", "-m", "tri-mg"]) == 1
+        assert "MSA only supports marginal models" in capsys.readouterr().err
+        assert main(["sample", str(src), "-m", "tri-mg"]) == 1
+        assert "Sampling only available" in capsys.readouterr().err
     assert torch_cli.main(["alignpair", str(src), "-m", "tri-mg",
                            "--device", "cpu"]) == 1
     assert "not yet ported" in capsys.readouterr().err
@@ -87,10 +94,24 @@ def test_not_ported_verbs_and_models_exit_1(tmp_path, capsys):
     assert "not yet ported" in capsys.readouterr().err
 
 
+def _msa_inputs(tmp_path):
+    """A small tree with distinct branch lengths and its sequences."""
+    fasta = tmp_path / "msa.fasta"
+    fasta.write_text(">A\nTCATCG\n>B\nTCAGTCG\n>C\nTATCG\n>D\nTCACTCG\n"
+                     ">E\nTCATC\n")
+    tree = tmp_path / "tree.newick"
+    tree.write_text("((((A:0.1,B:0.15):0.1,C:0.12):0.1,D:0.07):0.1,E:0.2);")
+    return str(fasta), str(tree)
+
+
 def test_port_never_imports_jax(tmp_path):
     """Importing the port, aligning one pair with alignpair and a stream with
-    batch on the CPU leaves jax, the JAX package coati_tpu and bench out of
-    sys.modules (a subprocess, since this test process imports them)."""
+    batch, sampling on both routes and one msa on the CPU leaves jax, the JAX
+    package coati_tpu and bench out of sys.modules (a subprocess, since this
+    test process imports them)."""
+    fasta, tree = _msa_inputs(tmp_path)
+    msa_out = tmp_path / "msa_out.fasta"
+    samples = [tmp_path / "s1.json", tmp_path / "s3.json"]
     src = tmp_path / "pair.fasta"
     src.write_text(PAIR)
     pairs = tmp_path / "pairs.fasta"
@@ -105,6 +126,17 @@ def test_port_never_imports_jax(tmp_path):
         "assert rc == 0, rc\n"
         f"rc = main(['batch', {str(pairs)!r}, '--device', 'cpu', '-o', {str(rows)!r}])\n"
         "assert rc == 0, rc\n"
+        f"rc = main(['sample', {str(src)!r}, '-n', '3', '-s', '5', '--device', 'cpu',\n"
+        f"           '-o', {str(samples[0])!r}])\n"
+        "assert rc == 0, rc\n"
+        "from coati_tpu_torch import driver\n"
+        "driver.NATIVE_SAMPLE_CELLS = 0\n"
+        f"rc = main(['sample', {str(src)!r}, '-n', '3', '-s', '5', '--device', 'cpu',\n"
+        f"           '-o', {str(samples[1])!r}])\n"
+        "assert rc == 0, rc\n"
+        f"rc = main(['msa', {fasta!r}, {tree!r}, 'A', '--device', 'cpu',\n"
+        f"           '-o', {str(msa_out)!r}])\n"
+        "assert rc == 0, rc\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'coati_tpu', 'bench'))\n"
         "assert not bad, bad\n"
@@ -116,6 +148,8 @@ def test_port_never_imports_jax(tmp_path):
     assert res.stdout.strip() == "ok"
     assert "CT----ATAGTG" in out.read_text()
     assert len(rows.read_text().splitlines()) == 4
+    assert all(len(json.loads(path.read_text())) == 3 for path in samples)
+    assert msa_out.read_text().count(">") == 5
 
 
 def test_port_sources_import_nothing_of_jax_or_the_jax_package():
@@ -188,3 +222,136 @@ def test_cuda_request_without_cuda_raises(tmp_path, monkeypatch, capsys):
     assert torch_cli.main(["alignpair", str(src), "-o", str(out)]) == 1
     assert "CUDA is not available" in capsys.readouterr().err
     assert not out.exists()
+
+
+def _outputs(tmp_path, jax_argv, torch_extra=(), out_name=None, capsys=None):
+    """(coati-tpu's bytes, coati-tpu-torch's) for one command line: of the
+    file given to -o, or of stdout."""
+    outs = []
+    for tag, main, extra in (("jax", jax_cli.main, ()),
+                             ("torch", torch_cli.main, torch_extra)):
+        argv = [*jax_argv, *extra]
+        out = None
+        if out_name:
+            out = tmp_path / f"{tag}_{out_name}"
+            argv += ["-o", str(out)]
+        assert main(argv) == 0, tag
+        outs.append(out.read_bytes() if out else capsys.readouterr().out.encode())
+    return outs
+
+
+def test_sample_native_route_matches_jax_cli(tmp_path):
+    """At most 4,000,000 cells: both CLIs draw the reference's Lehmer64
+    stream through their native libraries. The known-good pair with -s 42 is
+    byte-equal. On a 510 nt pair with -n 8 -s 11 the sampled alignments are
+    byte-equal and the scores agree to 2e-5: the JAX package's checked-in
+    library was built with FMA contraction, the port's is not, so a path's
+    f32 log probability may differ in its last places."""
+    import numpy as np
+    from coati_tpu.constants import CODONS61
+
+    src = tmp_path / "cc.fasta"
+    src.write_text(">A\nCCCCCC\n>B\nCCCCCCCC\n")
+    got_jax, got_torch = _outputs(tmp_path, ["sample", str(src), "-n", "3", "-s", "42"],
+                                  ("--device", "cpu"), "cc.json")
+    assert got_jax == got_torch
+    assert [tuple(r["alignment"].values())[0] for r in json.loads(got_torch)] == \
+        ["CC--CCCC", "CCCCCC--", "CCCC--CC"]
+
+    rng = np.random.default_rng(5)
+    anc = "".join(rng.choice(np.array(CODONS61), size=170))
+    des = anc[:250] + anc[260:]
+    src = tmp_path / "mid.fasta"
+    src.write_text(f">a\n{anc}\n>b\n{des}\n")
+    got_jax, got_torch = _outputs(tmp_path, ["sample", str(src), "-n", "8", "-s", "11"],
+                                  ("--device", "cpu"), "mid.json")
+    want, got = json.loads(got_jax), json.loads(got_torch)
+    assert [r["alignment"] for r in got] == [r["alignment"] for r in want]
+    assert len(got) == 8 and got_torch.startswith(b"[\n{\n  \"alignment\"")
+    for g, w in zip(got, want):
+        assert list(g) == list(w) == ["alignment", "score"]
+        assert g["score"] == pytest.approx(w["score"], abs=2e-5)
+
+
+def test_sample_device_route_on_the_cpu(tmp_path, monkeypatch):
+    """sample forced onto the Forward + walk route with --device cpu: valid
+    JSON, every sample ungaps to its inputs, one seed gives one output,
+    another seed another. Not byte-equal to coati-tpu: the streams differ by
+    design."""
+    from coati_tpu_torch import driver
+    from coati_tpu_torch.align import sample_device
+
+    monkeypatch.setattr(driver, "NATIVE_SAMPLE_CELLS", 0)
+    calls = []
+    real = sample_device.sample_batch_device
+    monkeypatch.setattr(sample_device, "sample_batch_device",
+                        lambda *a, **kw: calls.append(1) or real(*a, **kw))
+    anc, des = "CCCCCCAAATAA", "CCCCCCCCAANTAA"  # many placements, end stops
+    src = tmp_path / "pair.fasta"
+    src.write_text(f">anc\n{anc}\n>des\n{des}\n")
+    outs = []
+    for seed, name in (("11", "a"), ("11", "b"), ("12", "c")):
+        out = tmp_path / f"{name}.json"
+        assert torch_cli.main(["sample", str(src), "-n", "40", "-s", seed,
+                               "--device", "cpu", "-o", str(out)]) == 0
+        outs.append(out.read_bytes())
+    assert len(calls) == 3
+    assert outs[0] == outs[1] and outs[0] != outs[2]
+    rows = json.loads(outs[0])
+    assert len(rows) == 40
+    for r in rows:
+        s0, s1 = r["alignment"].values()
+        assert len(s0) == len(s1)
+        assert s0.replace("-", "") == anc and s1.replace("-", "") == des
+        assert r["score"] < 0
+    assert len({tuple(r["alignment"].values()) for r in rows}) > 1
+
+
+def test_sample_without_cuda_fails_whatever_the_size(tmp_path, monkeypatch, capsys):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    src = tmp_path / "pair.fasta"
+    src.write_text(PAIR)
+    assert torch_cli.main(["sample", str(src), "-n", "2", "-s", "1"]) == 1
+    assert "CUDA is not available" in capsys.readouterr().err
+    fasta, tree = _msa_inputs(tmp_path)
+    assert torch_cli.main(["msa", fasta, tree, "A"]) == 1
+    assert "CUDA is not available" in capsys.readouterr().err
+
+
+def test_genseed_and_version_match_jax_cli(tmp_path, capsys):
+    from test_sample import GENSEED_VECTORS
+
+    for args, expect in GENSEED_VECTORS:
+        got_jax, got_torch = _outputs(tmp_path, ["genseed", *args], capsys=capsys)
+        assert got_jax == got_torch == (expect + "\n").encode()
+    assert torch_cli.main(["genseed"]) == 0  # seeded from the clock
+    assert len(capsys.readouterr().out.strip()) == 27
+    got_jax, got_torch = _outputs(tmp_path, ["version"], capsys=capsys)
+    assert got_torch == got_jax.replace(b"coati-tpu ", b"coati-tpu-torch ")
+    assert got_torch.startswith(b"coati-tpu-torch v")
+
+
+@pytest.mark.parametrize("args,out_name", [
+    ([], "out.phy"),
+    (["-p"], "out.fasta"),
+    (["-p", "-c", "?"], "out.fasta"),
+    (["-s", "b", "a"], "out.fasta"),
+    (["-x", "2"], "out.json"),
+    (["-p", "-c", "N", "-x", "2", "1"], "out.phy"),
+])
+def test_format_matches_jax_cli(tmp_path, args, out_name):
+    src = tmp_path / "in.fasta"
+    src.write_text(">a\nAC-GTAC--T\n>b\nACCGTACGGT\n")
+    got_jax, got_torch = _outputs(tmp_path, ["format", str(src), *args],
+                                  out_name=out_name)
+    assert got_jax == got_torch and got_torch
+    assert torch_cli.main(["format", str(src), "-c", "?"]) != 0
+    assert torch_cli.main(["format", str(src), "-s", "a", "-x", "1"]) != 0
+
+
+@pytest.mark.parametrize("out_name", ["out.fasta", "out.phy", "out.json"])
+def test_msa_matches_jax_cli(tmp_path, out_name):
+    fasta, tree = _msa_inputs(tmp_path)
+    got_jax, got_torch = _outputs(tmp_path, ["msa", fasta, tree, "A"],
+                                  ("--device", "cpu"), out_name)
+    assert got_jax == got_torch and got_torch

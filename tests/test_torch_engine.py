@@ -208,3 +208,49 @@ def test_alignment_params_resolve_the_jax_packages_table():
     np.testing.assert_array_equal(
         got.subst_matrix, marginal_p(mg94_p(0.05, 0.3, PI), PI).astype(np.float32))
     assert alignment_params("tri-mg").subst_matrix is None
+
+
+@pytest.mark.parametrize("k", [1, 3])
+def test_native_strings_equal_the_numpy_version(mg94_table, k):
+    """ops_to_strings goes through the port's native library, as the JAX
+    package's does through its own; ops_to_strings_plain is the numpy
+    version it is held to, on random op streams with -1 padding and on the
+    engine's own walks."""
+    rng = np.random.default_rng(90 + k)
+    a_strs, b_strs, cols = [], [], []
+    for _ in range(12):
+        ops = rng.choice([0, 0, 0, 1, 2], size=int(rng.integers(0, 60)))
+        na = int((ops == 0).sum() + k * (ops == 1).sum())
+        nb = int((ops == 0).sum() + k * (ops == 2).sum())
+        a_strs.append("".join(rng.choice(list("ACGT"), size=na)))
+        b_strs.append("".join(rng.choice(list("ACGTN"), size=nb)))
+        cols.append(ops)
+    steps = max(len(c) for c in cols) + 3
+    ops_fwd = np.full((steps, len(cols)), -1, np.int8)
+    for p, c in enumerate(cols):
+        ops_fwd[steps - len(c):, p] = c  # leading -1, as a reversed walk has
+    score = rng.normal(size=len(cols)).astype(np.float32)
+    got = torch_engine.ops_to_strings(ops_fwd, score, a_strs, b_strs, k)
+    want = torch_engine.ops_to_strings_plain(ops_fwd, score, a_strs, b_strs, k)
+    assert got == want and len(got) == 12
+    _assert_same(jax_engine.ops_to_strings(ops_fwd, score, a_strs, b_strs, k), got)
+    for r, a, b in zip(got, a_strs, b_strs):
+        assert r.seq0.replace("-", "") == a and r.seq1.replace("-", "") == b
+
+    pairs = _pairs(31 + k, 8, k)
+    enc_as, enc_bs = _encode(pairs)
+    gap = GapParams(len=k)
+    astrs, bstrs = [a for a, _ in pairs], [b for _, b in pairs]
+    native_res = torch_engine.viterbi_align_batch(enc_as, enc_bs, astrs, bstrs,
+                                                  mg94_table, gap, device="cpu")
+    calls = []
+
+    def plain_spy(*args):
+        calls.append(1)
+        return torch_engine.ops_to_strings_plain(*args)
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(torch_engine, "ops_to_strings", plain_spy)
+        plain_res = torch_engine.viterbi_align_batch(
+            enc_as, enc_bs, astrs, bstrs, mg94_table, gap, device="cpu")
+    assert calls and native_res == plain_res

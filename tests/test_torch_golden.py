@@ -12,6 +12,11 @@ tests/data/torch_long_path_golden.json holds the same for three pairs of
 2,997 nt (chip_smoke's long_golden_pairs) forced through the long-pair route
 of coati_tpu's viterbi_align_batch with long_slots=LONG_GOLDEN_SLOTS.
 
+tests/data/torch_msa_golden.json holds the size and a sha256 of the FASTA
+that coati_tpu's msa verb writes for chip_smoke's make_msa_inputs at
+MSA_GOLDEN_SHAPE (12 leaves with 12 different distances to a 300 nt
+reference).
+
 Regenerate with: JAX_PLATFORMS=cpu python tests/test_torch_golden.py
 """
 
@@ -32,10 +37,14 @@ from chip_smoke import (  # noqa: E402
     LENGTH_MIX,
     LONG_GOLDEN,
     LONG_GOLDEN_SLOTS,
+    MSA_GOLDEN,
+    MSA_GOLDEN_SHAPE,
     golden_record,
     long_golden_pairs,
     long_golden_record,
+    make_msa_inputs,
     make_pairs,
+    msa_golden_record,
 )
 
 PER_CLASS = 8
@@ -121,7 +130,42 @@ def test_long_golden_is_the_reference_and_the_port_meets_it(mg94_table, monkeypa
                         golden["seed"], device="cpu") == want
 
 
+def msa_record(cli_main, seed, tmp, extra=()):
+    """Golden record of one package's msa verb on the golden tree."""
+    fasta, newick, ref, _ = make_msa_inputs(*MSA_GOLDEN_SHAPE, seed)
+    src, tree, out = (Path(tmp) / name for name in ("in.fasta", "t.newick", "out.fasta"))
+    src.write_text(fasta)
+    tree.write_text(newick)
+    assert cli_main(["msa", str(src), str(tree), ref, "-o", str(out), *extra]) == 0
+    return msa_golden_record(out.read_text())
+
+
+def test_msa_golden_is_the_reference_and_the_port_meets_it(tmp_path, monkeypatch):
+    from coati_tpu.cli import main as jax_main
+    from coati_tpu_torch.cli import main as torch_main
+
+    monkeypatch.setenv("COATI_TPU_MAX_DEVICES", "1")
+    golden = json.loads(MSA_GOLDEN.read_text())
+    assert golden["record"]["rows"] == MSA_GOLDEN_SHAPE[0] + 1
+    assert msa_record(jax_main, golden["seed"], tmp_path) == golden["record"]
+    assert msa_record(torch_main, golden["seed"], tmp_path,
+                      ("--device", "cpu")) == golden["record"]
+
+
 if __name__ == "__main__":
+    import tempfile
+
+    from coati_tpu.cli import main as jax_main
+
+    with tempfile.TemporaryDirectory() as tmp:
+        MSA_GOLDEN.write_text(json.dumps({
+            "source": "coati_tpu.cli msa on XLA:CPU, mar-mg defaults, "
+                      f"chip_smoke.make_msa_inputs{MSA_GOLDEN_SHAPE}, seed 8",
+            "seed": 8,
+            "record": msa_record(jax_main, 8, tmp),
+        }, indent=1) + "\n")
+    print(f"wrote {MSA_GOLDEN}")
+
     from coati_tpu.align.engine import viterbi_align_batch as jax_align
     from coati_tpu.batchrun import batch_align as jax_batch_align
     from coati_tpu.models import marginal_p, mg94_p

@@ -2,8 +2,8 @@
 copied from.
 
 The port imports nothing of the JAX package, so it keeps its own constants,
-structs, utils, version, profiling, io/, models/, align/semiring and
-align/score. Each case sends the same numpy-seeded inputs through both copies
+structs, utils, version, profiling, io/, models/, align/semiring,
+align/score, rng, format, align/oracle, msa/tree and msa/insertions. Each case sends the same numpy-seeded inputs through both copies
 and wants equal results: tables and arrays bit-equal, strings and file bytes
 equal. Tolerance: none.
 """
@@ -371,6 +371,173 @@ def case_batchrun_helpers(tmp_path):
     assert filled[0] == filled[1]
 
 
+def case_rng():
+    jr, tr = both("rng")
+    for seeds in (["42"], ["42", "hello"], ["-7"], ["2147483648"], ["a", "b", "c"]):
+        rngs = []
+        for mod in (jr, tr):
+            rng = mod.Lehmer64()
+            mod.seed_random(rng, mod.string_seed_seq(seeds))
+            rngs.append(rng)
+        assert rngs[0].state == rngs[1].state
+        assert jr.encode_seed(rngs[0].get_seed_u32x4()) == \
+            tr.encode_seed(rngs[1].get_seed_u32x4())
+        for draw in ("bits", "u64", "f24", "f53"):
+            assert [getattr(rngs[0], draw)() for _ in range(50)] == \
+                [getattr(rngs[1], draw)() for _ in range(50)]
+        assert rngs[0].state == rngs[1].state
+    assert jr.Lehmer64().state == tr.Lehmer64().state
+    assert jr.SeedSeq256([1, 2, 3]).generate(8) == tr.SeedSeq256([1, 2, 3]).generate(8)
+    assert [jr.str_crushto32(x) for x in ("", "coati", "0x1F")] == \
+        [tr.str_crushto32(x) for x in ("", "coati", "0x1F")]
+    assert [jr.base58_encode_u32(u) for u in (0, 57, 58, 2**32 - 1)] == \
+        [tr.base58_encode_u32(u) for u in (0, 57, 58, 2**32 - 1)]
+    assert len(tr.auto_seed_seq().generate(4)) == 4
+
+
+def case_format(tmp_path):
+    jf, tf = both("format")
+    js, ts = both("structs")
+    seqs = ["AC-GTAC--TAAA----C", "ACCGTACGGTAAACCCCC", "ACCGTAC--TAAAC---C"]
+    runs = [
+        dict(preserve_phase=True, padding="?"),
+        dict(preserve_phase=True, padding="N", names=["c", "a"]),
+        dict(pos=[2, 3]),
+        dict(names=["b"]),
+    ]
+    for n, kw in enumerate(runs):
+        outs = []
+        for tag, fmt_mod, st in (("j", jf, js), ("t", tf, ts)):
+            aln = st.AlignmentParams()
+            aln.data = st.SeqData(names=["a", "b", "c"], seqs=list(seqs))
+            aln.output = str(tmp_path / f"{tag}{n}.fasta")
+            assert fmt_mod.format_sequences(fmt_mod.FormatArgs(**kw), aln) == 0
+            outs.append((tmp_path / f"{tag}{n}.fasta").read_bytes())
+        assert outs[0] == outs[1] and outs[0]
+    for fmt_mod, st in ((jf, js), (tf, ts)):
+        aln = st.AlignmentParams()
+        aln.data = st.SeqData(names=["a", "b"], seqs=seqs[:2])
+        with pytest.raises(ValueError, match="Invalid padding"):
+            fmt_mod.format_sequences(
+                fmt_mod.FormatArgs(preserve_phase=True, padding="-"), aln)
+        with pytest.raises(ValueError):
+            fmt_mod.extract_seqs(fmt_mod.FormatArgs(names=["zz"]), aln.data)
+
+
+def case_oracle(mg94_table):
+    """Fill, traceback and seeded sampleback of the Python oracle, tropical
+    and log, k = 1 and 3: every matrix bit-equal, every string equal."""
+    jo, to = both("align.oracle")
+    js, ts = both("structs")
+    ju, tu = both("utils")
+    jr, tr = both("rng")
+    rng = np.random.default_rng(21)
+    from coati_tpu.constants import CODONS61
+
+    for k in (1, 3):
+        anc = _coding_seq(rng, CODONS61, 6 * k)
+        des = "".join(rng.choice(list("ACGT"), size=5 * 3 * k))
+        for semiring in ("tropical", "log"):
+            works = []
+            for orc, st, ut in ((jo, js, ju), (to, ts, tu)):
+                gap = st.GapParams(len=k)
+                a, b = ut.encode_marginal(anc, des)
+                work = orc.forward_oracle(a, b, mg94_table, gap, semiring,
+                                          save_edges=True)
+                works.append((orc, work, gap, a, b))
+            (_, wj, _, _, _), (_, wt, _, _, _) = works
+            for name in ("mch", "del_", "ins"):
+                _same(getattr(wj, name), getattr(wt, name), name)
+            _same(wj.edges, wt.edges, "edges")
+            if semiring == "tropical":
+                assert jo.traceback(wj, anc, des, works[0][2]) == \
+                    to.traceback(wt, anc, des, works[1][2])
+                continue
+            r1, r2 = jr.Lehmer64(), tr.Lehmer64()
+            for _ in range(20):
+                assert jo.sampleback(wj, anc, des, works[0][2], r1) == \
+                    to.sampleback(wt, anc, des, works[1][2], r2)
+                assert jo.sampleback_mdi(wj.mch, wj.del_, wj.ins, works[0][3],
+                                         works[0][4], mg94_table, anc, des,
+                                         works[0][2], r1) == \
+                    to.sampleback_mdi(wt.mch, wt.del_, wt.ins, works[1][3],
+                                      works[1][4], mg94_table, anc, des,
+                                      works[1][2], r2)
+            assert r1.state == r2.state
+    assert [jo.max_mdi(1.0, 1.0, 1.0), jo.max_mdi(0.0, 1.0, 1.0), jo.max_mi(1.0, 1.0)] == \
+        [to.max_mdi(1.0, 1.0, 1.0), to.max_mdi(0.0, 1.0, 1.0), to.max_mi(1.0, 1.0)]
+
+
+def _tree_view(tree):
+    return [(n.label, n.length, n.is_leaf, n.parent, list(n.children)) for n in tree]
+
+
+def case_msa_tree(tmp_path):
+    jt, tt = both("msa.tree")
+    js, ts = both("structs")
+    texts = [
+        "(B_b:6.0,(A-a:5.0,C/c:3.0,E.e:4.0)Ancestor:5.0,D%:11.0);",
+        "((raccoon:19.2,bear:6.8):0.8,((sea_lion:12.0,seal:12.0):7.5,"
+        "((monkey:100.9,cat:47.1):20.6,weasel:18.9):2.1):3.9,dog:25.5);",
+        "((((A:0.1,B:0.15):0.1,C:0.12):0.1,D:0.07):0.1,E:2e-1);",
+    ]
+    for text in texts:
+        a, b = jt.parse_newick(text), tt.parse_newick(text)
+        assert _tree_view(a) == _tree_view(b) and len(b) > 4
+        leaves = [n.label for n in b if n.is_leaf]
+        for ref in (leaves[0], leaves[-1]):
+            a, b = jt.parse_newick(text), tt.parse_newick(text)
+            jt.reroot(a, ref)
+            tt.reroot(b, ref)
+            assert _tree_view(a) == _tree_view(b)
+            ra, rb = jt.find_node(a, ref), tt.find_node(b, ref)
+            assert ra == rb
+            assert [jt.distance_ref(a, ra, n) for n in range(len(a))] == \
+                [tt.distance_ref(b, rb, n) for n in range(len(b))]
+    for mod in (jt, tt):
+        with pytest.raises(RuntimeError):
+            mod.parse_newick("")
+        with pytest.raises(ValueError):
+            mod.read_newick(str(tmp_path / "missing.newick"))
+    path = tmp_path / "t.newick"
+    path.write_text(texts[0])
+    assert jt.read_newick(str(path)) == tt.read_newick(str(path)) == texts[0]
+    for mod, st in ((jt, js), (tt, ts)):
+        data = st.SeqData(names=["x", "y"], seqs=["AC", "GT"])
+        assert mod.find_seq("y", data) == "GT"
+
+
+def _ins_view(data):
+    return (data.sequences, data.names, data.insertions.cols,
+            sorted(data.insertions.d.items()))
+
+
+def case_msa_insertions():
+    ji, ti = both("msa.insertions")
+    assert (ji.OPEN, ji.CLOSED) == (ti.OPEN, ti.CLOSED)
+    pairs = [("TCA-TCG", "TCAGTCG"), ("TCATCG", "TCATCG"), ("-TCATCG", "TTCATCG"),
+             ("TCA--TCG", "TCAGGTCG"), ("TCATCG-", "T-ATCGA")]
+    merged = []
+    for mod in (ji, ti):
+        flags = [mod.insertion_flags(r, s) for r, s in pairs]
+        data = [mod.InsertionData.single(s, f"n{n}", f)
+                for n, ((_, s), f) in enumerate(zip(pairs, flags))]
+        left = mod.merge_indels([d.copy() for d in data[:3]])
+        right = mod.merge_indels([d.copy() for d in data[3:]])
+        merged.append([_ins_view(left), _ins_view(right),
+                       _ins_view(mod.merge_indels([left, right]))])
+        with pytest.raises(RuntimeError):
+            mod.insertion_flags("TCA-TC", "TCAGTCG")
+        vec = mod.InsVector(10)
+        vec.set(3, mod.OPEN)
+        vec.set(7, mod.CLOSED)
+        vec.shift_right_after(4)
+        merged[-1].append((vec.cols, sorted(vec.d.items()), vec.nonzeros(),
+                           vec.get(3), vec.get(8), vec.copy().get(8)))
+    assert merged[0] == merged[1]
+    assert len(merged[1][2][0]) == 5
+
+
 def _io_case(kind):
     return lambda tmp_path: case_io_roundtrip(kind, tmp_path)
 
@@ -390,6 +557,11 @@ CASES = {
     "semiring": case_semiring,
     "structs_version_profiling": case_structs_version_profiling,
     "batchrun_cli_helpers": case_batchrun_helpers,
+    "rng": case_rng,
+    "format": case_format,
+    "align_oracle": case_oracle,
+    "msa_tree": case_msa_tree,
+    "msa_insertions": case_msa_insertions,
 }
 
 

@@ -177,9 +177,27 @@ def test_score_mode_matches_xla_and_pallas(mg94_table, k):
     # the plain fill in score mode is the viterbi mode without bp
     adj, bp = tw.wavefront_plain(*_torch(aseq, bseq, la, lb, mg94_table, gc), k=k)
     np.testing.assert_array_equal(got.numpy(), torch.stack(adj).numpy())
+    # an unknown mode or semiring is refused; forward mode, ported with the
+    # sampling path, takes the whole matrix only
     with pytest.raises(ValueError, match="mode"):
         tw.wavefront_plain(*_torch(aseq, bseq, la, lb, mg94_table, gc), k=k,
-                           mode="forward")
+                           mode="backward")
+    with pytest.raises(ValueError, match="semiring"):
+        tw.wavefront_plain(*_torch(aseq, bseq, la, lb, mg94_table, gc), k=k,
+                           mode="score", semiring="arctic")
+    with pytest.raises(ValueError, match="whole matrix"):
+        tw.wavefront_plain(*_torch(aseq, bseq, la, lb, mg94_table, gc), k=k,
+                           mode="forward", semiring="log", n_steps=10)
+    # the log semiring in score mode gives the Forward's corners
+    log_adj, none = tw.wavefront_plain(
+        *_torch(aseq, bseq, la, lb, mg94_table, gc), k=k, mode="score",
+        semiring="log")
+    fwd_adj, _ = tw.wavefront_plain(
+        *_torch(aseq, bseq, la, lb, mg94_table, gc), k=k, mode="forward",
+        semiring="log")
+    assert none is None
+    for x, y in zip(log_adj, fwd_adj):
+        np.testing.assert_array_equal(x.numpy(), y.numpy())
 
 
 def _mutated_pair(rng, n_codons, k=1, sub_rate=0.05, n_indels=3, alphabet="ACGT"):
@@ -473,3 +491,26 @@ def test_segment_wrappers_on_cpu_launch_nothing_and_check_inputs(mg94_table):
                               k=k, start=(adj[:2], args[2], args[3]))
     with pytest.raises(ValueError, match="ring must be"):
         carry_from_numpy(np.zeros((2, 2, 1, 4), np.float32), [np.zeros(1)] * 3, "cpu")
+
+
+@pytest.mark.parametrize("k,sizes,seg", [(1, (90, 120), 100), (3, (60, 90), 77)])
+def test_long_batch_matches_the_native_engine(mg94_table, k, sizes, seg):
+    """The segmented long-pair route against the port's native C++ engine
+    (native.viterbi_align: its own fill and backpointer walk), the
+    string-level truth where the Python oracle is too slow: alignments
+    byte-equal; scores within 1e-6 of their magnitude, since the native
+    margins are a product and a sum where the device's are one FMA."""
+    from coati_tpu_torch import native
+    from coati_tpu_torch.structs import GapParams as TorchGapParams
+
+    enc_as, enc_bs, astrs, bstrs = _pairs(70 + k, sizes, k)
+    gap = TorchGapParams(len=k)
+    got = torch_longseq.viterbi_align_long_batch(
+        enc_as, enc_bs, astrs, bstrs, mg94_table, gap, seg_diagonals=seg,
+        device="cpu")
+    for r, ea, eb, a, b in zip(got, enc_as, enc_bs, astrs, bstrs):
+        s0, s1, score = native.viterbi_align(ea, eb, a, b, gap, mg94_table)
+        assert (r.seq0, r.seq1) == (s0, s1)
+        assert r.score == pytest.approx(score, rel=1e-6, abs=0)
+        assert native.viterbi_score(ea, eb, mg94_table, gap) == \
+            pytest.approx(r.score, rel=1e-6, abs=0)
