@@ -69,6 +69,23 @@ Phases, each printing lines (any failure raises, exit code non-zero):
              tree equals the JAX reference's output
              (tests/data/torch_msa_golden.json).
 
+9. triplet - the codon triplet models. Kernels: the forward rows
+             (triplet_rows) and the walk (triplet_walk) against their plain
+             versions on the card, tolerance 0: ragged batches with N,
+             tri-ecm, one pair, rows wider than a block's tile, the carry
+             form from a checkpoint with and without the grid, the walk whole
+             and in segments with a ragged last one, on the plain rows and on
+             the kernel's own (whose cells outside the pairs are
+             uninitialized). Path: batch_align -m tri-mg over 64 pairs of 999
+             nt and 16 of 2,997 nt, counters reset just before the timed run
+             and read just after; a subset again with the plain versions
+             standing in; tests/data/torch_triplet_golden.json held; a few
+             results against triplet_path_score; a tri-ecm and a dna pair
+             through alignpair against the host engine; one pair of
+             TRIPLET_LONG_NT nt through alignpair -m tri-mg, which the
+             default byte budget sends down the segmented path, held string
+             for string to the full-grid route.
+
 Every line carries the seconds since the start. The line before last is a
 JSON object with one entry per kernel; the last line is
 {"ok": true, "device": {...}}.
@@ -92,7 +109,8 @@ sys.path.insert(0, str(ROOT))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-from coati_tpu_torch import batchrun, cli, utils  # noqa: E402
+from coati_tpu_torch import batchrun, cli, triplet_hmm, utils  # noqa: E402
+from coati_tpu_torch import triplet_wavefront as tw  # noqa: E402
 from coati_tpu_torch.align import engine, longseq  # noqa: E402
 from coati_tpu_torch.align.sample_device import sample_paths_plain  # noqa: E402
 from coati_tpu_torch.align.wavefront import (  # noqa: E402
@@ -105,6 +123,8 @@ from coati_tpu_torch.io.fasta import read_fasta  # noqa: E402
 from coati_tpu_torch.kernels import _build  # noqa: E402
 from coati_tpu_torch.kernels import sample_walk as sample_mod  # noqa: E402
 from coati_tpu_torch.kernels import traceback_walk as walk_mod  # noqa: E402
+from coati_tpu_torch.kernels import triplet_rows as trows_mod  # noqa: E402
+from coati_tpu_torch.kernels import triplet_walk as twalk_mod  # noqa: E402
 from coati_tpu_torch.kernels import wavefront_fill as fill_mod  # noqa: E402
 from coati_tpu_torch.kernels import wavefront_forward as fwd_mod  # noqa: E402
 from coati_tpu_torch.kernels import wavefront_score as score_mod  # noqa: E402
@@ -153,6 +173,30 @@ CELL_OPS_FORWARD = 58
 # subtractions, 3 exp, 1 log (one operation each), 2 adds, a multiplication,
 # 2 compares, 3 selects, a subtraction and the score's add
 STEP_OPS_WALK = 24
+# the triplet phase: (pairs, nt, seed) of each tri-mg batch, the sizes the
+# repo's bench runs the triplet engine at; the first is the kernels' cell
+TRIPLET_BATCHES = [(64, 999, 11), (16, 2997, 12)]
+# one pair just over the default byte budget of the full grid
+# (triplet_wavefront.TRIPLET_GRID_BUDGET_BYTES: 5,001 x 15,001 cells x 15 B)
+TRIPLET_LONG_NT = 15_000
+# the JAX reference's results for some 156 and 471 nt pairs under tri-mg,
+# written and checked by tests/test_torch_golden.py
+TRIPLET_GOLDEN = ROOT / "tests" / "data" / "torch_triplet_golden.json"
+TRIPLET_GOLDEN_PAIRS = 24
+# f32 operations the forward rows need on one boundary cell (one column of one
+# codon step), a prefix maximum as one maximum an element: phase 1 27 (core 5,
+# 4 M adds, D 5, 4 I of 3, off + go_ge 1), phase 2 104 (4 cores 20, 16 M adds,
+# 4 D 20, 16 I of 3), phase 3 256 (16 cores 80, 16 D 80, 16 M lane, 16 D lane
+# and 16 W adds, three collapses of 15 compares, the W maximum, the I add, the
+# new-maximum compare). The 16 entry costs max over x3 of cost + e depend only
+# on the pair, the step and the descendant nucleotide left of the column, a
+# table of 16 x 6 a step and not a cell's work, so they are not counted
+# (csrc/triplet_rows.cu computes them again in every column: 112 more).
+CELL_OPS_TRIPLET = 387
+# f32 operations of the walk on one recomputed column of one block: three
+# cores and three D rows of 5, 4 emission and cost adds, the D row's cost
+# add, three I of 4
+CELL_OPS_TRIPLET_WALK = 47
 WARM_RUNS = 5  # timed warm runs of the main path; the first is also checked
 # The Forward kernel against its plain version: lse is built from expf and
 # log1pf, which differ from torch's CUDA exp and log1p in the last place, and
@@ -199,6 +243,16 @@ KERNELS = {
         "route": "cuda",
         "source": "coati_tpu_torch/csrc/sample_walk.cu",
         "replaces": "coati_tpu/align/sample_device.py:39",
+    },
+    "triplet_rows": {
+        "route": "cuda",
+        "source": "coati_tpu_torch/csrc/triplet_rows.cu",
+        "replaces": "coati_tpu/kernels/triplet_pallas.py:197",
+    },
+    "triplet_walk": {
+        "route": "cuda",
+        "source": "coati_tpu_torch/csrc/triplet_walk.cu",
+        "replaces": "coati_tpu/kernels/triplet_pallas.py:454",
     },
 }
 
@@ -297,6 +351,13 @@ def long_golden_record(index, result):
             "sha256": hashlib.sha256(text.encode()).hexdigest()}
 
 
+def triplet_golden_pairs(seed):
+    """The named pairs of TRIPLET_GOLDEN: 156 and 471 nt."""
+    pairs = make_pairs(TRIPLET_GOLDEN_PAIRS, np.random.default_rng(seed),
+                       length_mix=[(156, 0.5), (471, 0.5)])
+    return [(f"anc{i}", a, f"des{i}", b) for i, (a, b) in enumerate(pairs)]
+
+
 def long_golden_pairs(seed):
     """The pairs of LONG_GOLDEN: three of 2,997 nt."""
     return make_pairs(3, np.random.default_rng(seed), length_mix=[(2997, 1.0)])
@@ -311,7 +372,18 @@ WRAPPERS = {
     "traceback_walk_segment": (walk_mod, "walk_segment"),
     "wavefront_forward": (fwd_mod, "wavefront_forward"),
     "sample_walk": (sample_mod, "sample_walk"),
+    "triplet_rows": (trows_mod, "triplet_rows"),
+    "triplet_walk": (twalk_mod, "triplet_walk"),
 }
+
+
+def _triplet_rows_plain(anc_cods, des_codes, ins_off, steps, lens_m, *rest,
+                        keep_grid=True, grid_out=None, amax_out=None):
+    grid, amax, out = trows_mod.triplet_rows_plain(
+        anc_cods, des_codes, ins_off, *rest, keep_grid=keep_grid, steps=steps)
+    if keep_grid and grid_out is not None:
+        grid, amax = grid_out.copy_(grid), amax_out.copy_(amax)
+    return grid, amax, out
 
 
 def _segment_plain(*args, want_carry=True, **kw):
@@ -325,6 +397,8 @@ PLAIN = {
     "wavefront_segment": _segment_plain,
     "wavefront_score": score_mod.score_plain,
     "traceback_walk_segment": walk_segment_plain,
+    "triplet_rows": _triplet_rows_plain,
+    "triplet_walk": twalk_mod.triplet_walk_plain,
 }
 
 
@@ -348,13 +422,16 @@ def launch_counts():
             "wavefront_score": score_mod.LAUNCHES,
             "traceback_walk_segment": walk_mod.SEGMENT_LAUNCHES,
             "wavefront_forward": fwd_mod.LAUNCHES,
-            "sample_walk": sample_mod.LAUNCHES}
+            "sample_walk": sample_mod.LAUNCHES,
+            "triplet_rows": trows_mod.LAUNCHES,
+            "triplet_walk": twalk_mod.LAUNCHES}
 
 
 def reset_launch_counts():
     fill_mod.LAUNCHES = walk_mod.LAUNCHES = seg_mod.LAUNCHES = 0
     score_mod.LAUNCHES = walk_mod.SEGMENT_LAUNCHES = 0
     fwd_mod.LAUNCHES = sample_mod.LAUNCHES = 0
+    trows_mod.LAUNCHES = twalk_mod.LAUNCHES = 0
 
 
 T_START = time.perf_counter()
@@ -860,9 +937,9 @@ class KernelTimer:
         return sum(s.elapsed_time(e) for s, e in self.events.get(name, [])) / 1e3
 
 
-def _run_batch(named, dev):
+def _run_batch(named, dev, model="mar-mg"):
     out = io.StringIO()
-    n = batchrun.batch_align(alignment_params(), named, out, device=dev)
+    n = batchrun.batch_align(alignment_params(model), named, out, device=dev)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     return n, [json.loads(line) for line in out.getvalue().splitlines()]
@@ -1215,7 +1292,7 @@ def score_cell(dev):
 
 
 # --- phase 6 ----------------------------------------------------------------
-def phase_numbers(card, main_shape, main, long, score, sample, errs):
+def phase_numbers(card, main_shape, main, long, score, sample, triplet, errs):
     tag = f"[{card}]"
     t = main["timer"]
     fill_s, walk_s = t.seconds("wavefront_fill"), t.seconds("traceback_walk")
@@ -1285,6 +1362,12 @@ def phase_numbers(card, main_shape, main, long, score, sample, errs):
         entry("sample_walk", sample["launches"]["sample_walk"],
               max(errs["sample_walk"], sample["walk_err"]), sample["walk_ms"],
               sample["walk_plain_ms"], sample["walk_bound"]),
+        entry("triplet_rows", triplet["launches"]["triplet_rows"],
+              triplet["rows_err"], triplet["rows_ms"], triplet["rows_plain_ms"],
+              triplet["rows_bound"]),
+        entry("triplet_walk", triplet["launches"]["triplet_walk"],
+              triplet["walk_err"], triplet["walk_ms"], triplet["walk_plain_ms"],
+              triplet["walk_bound"]),
     ]
     for e in kernels:
         say("numbers", f"{tag} {e['name']}: {e['ms']:.3f} ms, bound {e['bound_ms']:.3g} "
@@ -1571,6 +1654,471 @@ def run_longpair(dev, card, nt):
         f"pass 1; peak device memory {peak / 2**20:.1f} MiB; ungaps to its "
         f"inputs; score {score} equals the score kernel's ({score_wall:.2f} s wall)")
 
+# --- phase 9: the triplet models ---------------------------------------------
+def _triplet_model(name):
+    return triplet_hmm.build_triplet_model(alignment_params(name))
+
+
+def _sync(dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _triplet_case_pairs(seed, B, cods, nts):
+    """Ragged pairs of cods codons: the even ones homologous (make_pairs's
+    mutations), the odd ones with an unrelated descendant of nts nt; 2% N."""
+    rng = np.random.default_rng(seed)
+    codons, nucs = np.array(CODONS61), np.array(list("ACGT"))
+    pairs = []
+    for p in range(B):
+        anc = "".join(rng.choice(codons, size=int(rng.integers(cods[0], cods[1] + 1))))
+        if p % 2 == 0:
+            des = list(descendant(anc, rng))
+        else:
+            des = list(rng.choice(nucs, size=int(rng.integers(nts[0], nts[1] + 1))))
+        for q in np.nonzero(rng.random(len(des)) < 0.02)[0]:
+            des[q] = "N"
+        pairs.append((anc, "".join(des)))
+    return pairs
+
+
+class TripletBatch:
+    """A batch packed onto the device as the engine packs it."""
+
+    def __init__(self, model, pairs, dev):
+        enc = [triplet_hmm.encode_triplet_pair(model, a, d) for a, d in pairs]
+        (anc_p, des_p, self.lens_t, self.lens_m, ins_off, self.tables,
+         self.n_cod) = tw._pack_batch(model, [e[0] for e in enc],
+                                      [e[1] for e in enc], dev)
+        self.aj, self.dj, self.io, self.lt, self.lm = (
+            torch.from_numpy(x).to(dev)
+            for x in (anc_p, des_p, ins_off, self.lens_t, self.lens_m))
+        self.B, self.Cc, self.dev = len(pairs), des_p.shape[1] + 1, dev
+        self.init = tw.triplet_init_carry(self.dj, self.io, self.tables[2])
+
+    def rows_args(self):
+        return (self.aj, self.dj, self.io, self.lt, self.lm, *self.tables)
+
+    def true_cells(self, t_first=0):
+        """[n_cod + 1 - t_first, 3, B, Cc] mask of each pair's own boundaries
+        (t <= its codons) and columns (j <= its nt), from boundary t_first."""
+        t = torch.arange(t_first, self.n_cod + 1, device=self.dev)[:, None, None, None]
+        j = torch.arange(self.Cc, device=self.dev)[None, None, None, :]
+        own = (t <= self.lt[None, None, :, None]) & (j <= self.lm[None, None, :, None])
+        return own.expand(-1, 3, -1, -1)
+
+    def walk(self, fn, grid, amax, spans):
+        """The traceback of the whole batch by fn over `spans` of codon
+        blocks, top to bottom: (state [3, B], ops [6 n_cod, B])."""
+        bidx = torch.arange(self.B, device=self.dev)
+        last = self.lt.long()
+        st0, _ = tw.triplet_terminal(grid[last, 0, bidx], grid[last, 1, bidx],
+                                     grid[last, 2, bidx], self.lm, self.tables[2])
+        state = tw._walk_state(self.lt, self.lm, st0)
+        ops = torch.zeros((6 * self.n_cod, self.B), dtype=torch.int32, device=self.dev)
+        for t_lo, S in reversed(spans):
+            fn(grid[t_lo:t_lo + S + 1], amax[t_lo + 1:t_lo + S + 1],
+               self.aj[:, t_lo:t_lo + S].contiguous(), self.dj, self.io, t_lo,
+               state, ops, *self.tables)
+        return state, ops
+
+
+def check_triplet_case(dev, name, model_name, pairs, seg):
+    """One batch through the forward rows kernel and the walk kernel and
+    through their plain versions on the card; everything compared must be
+    equal (tolerance 0). Rows and lanes over each pair's own cells: the full
+    sweep, and the carry form from a checkpoint in the middle with the grid
+    and without (the carry out alone). The walk's state and every op row:
+    whole, in segments of `seg` blocks with a ragged last one, and on the
+    kernel's own rows. Returns the largest differences (rows, walk)."""
+    tb = TripletBatch(_triplet_model(model_name), pairs, dev)
+    if tb.n_cod % seg == 0 or tb.n_cod < 2:
+        raise AssertionError(f"triplet case {name}: {tb.n_cod} codons against "
+                             f"segments of {seg}")
+    grid_k, amax_k = tw._triplet_rows(*tb.rows_args())
+    with wrappers({"triplet_rows": PLAIN["triplet_rows"]}):
+        grid_p, amax_p = tw._triplet_rows(*tb.rows_args())
+    _sync(dev)
+
+    def bad(what):
+        raise AssertionError(f"triplet case {name}: {what} differ from the "
+                             f"plain version")
+
+    own = tb.true_cells()
+    if not torch.equal(grid_k[own], grid_p[own]):
+        bad(f"boundary rows ({int((grid_k[own] != grid_p[own]).sum())} cells)")
+    if not torch.equal(amax_k[own], amax_p[own]):
+        bad(f"argmax lanes ({int((amax_k[own] != amax_p[own]).sum())} cells)")
+    if not bool(torch.isfinite(grid_k[own]).all()):
+        raise AssertionError(f"triplet case {name}: non-finite boundary rows")
+    rows_err = float((grid_k[own] - grid_p[own]).abs().max())
+
+    # the carry form, from the plain version's boundary t0
+    t0 = tb.n_cod // 2
+    S = tb.n_cod - t0
+    steps = (tb.lt - t0).clamp(0, S)
+    args = (tb.aj[:, t0:].contiguous(), tb.dj, tb.io, steps, tb.lm, *tb.tables,
+            grid_p[t0].contiguous())
+    g2, a2, out_grid = trows_mod.triplet_rows(*args, keep_grid=True)
+    none_g, none_a, out_carry = trows_mod.triplet_rows(*args, keep_grid=False)
+    _sync(dev)
+    above = tb.true_cells(t0 + 1)
+    if none_g is not None or none_a is not None:
+        bad("the carry-only outputs")
+    if not (torch.equal(g2[above], grid_p[t0 + 1:][above])
+            and torch.equal(a2[above], amax_p[t0 + 1:][above])):
+        bad("rows or lanes of the carry form")
+    # a pair's carry out is the boundary after its own last step
+    last = torch.clamp(tb.lt, min=t0).long()
+    want = grid_p[last, :, torch.arange(tb.B, device=dev)].permute(1, 0, 2)
+    cols = above[0]
+    for what, out in (("with the grid", out_grid), ("alone", out_carry)):
+        if not torch.equal(out[cols], want[cols]):
+            bad(f"the carry out {what}")
+
+    whole = [(0, tb.n_cod)]
+    segs = [(lo, min(seg, tb.n_cod - lo)) for lo in range(0, tb.n_cod, seg)]
+    st_p, ops_p = tb.walk(twalk_mod.triplet_walk_plain, grid_p, amax_p, whole)
+    walk_err = 0.0
+    for what, got in (
+            ("the whole walk", tb.walk(twalk_mod.triplet_walk, grid_p, amax_p, whole)),
+            ("the walk in segments", tb.walk(twalk_mod.triplet_walk, grid_p, amax_p, segs)),
+            ("the walk on the kernel's rows",
+             tb.walk(twalk_mod.triplet_walk, grid_k, amax_k, whole))):
+        _sync(dev)
+        walk_err = max(walk_err, float((got[0] - st_p).abs().max()),
+                       float((got[1] - ops_p).abs().max()))
+        if not (torch.equal(got[0], st_p) and torch.equal(got[1], ops_p)):
+            bad(f"state or op rows of {what}")
+    if not bool((st_p[0] == 0).all()):
+        raise AssertionError(f"triplet case {name}: a walk did not reach row 0")
+    runs = int(((ops_p >> 2) > 1).sum())
+    say("kernels", f"triplet {name}: {model_name} B={tb.B} n_cod={tb.n_cod} "
+        f"Cc={tb.Cc} ({trows_mod.block_threads(tb.Cc)} threads a block): rows and "
+        f"lanes on {int(own[:, 0].sum())} true cells, the carry form from "
+        f"boundary {t0} with and without the grid, walk state and "
+        f"{ops_p.numel()} op rows ({runs} insertion runs) whole, in "
+        f"{len(segs)} segments of {seg} and on the kernel's own rows: equal to plain")
+    return rows_err, walk_err
+
+
+def phase_triplet_kernels(dev):
+    cases = [
+        # name, model, pairs, blocks a walk segment
+        ("ragged with N", "tri-mg", _triplet_case_pairs(31, 24, (1, 60), (1, 200)), 7),
+        ("tri-ecm", "tri-ecm", _triplet_case_pairs(32, 5, (20, 90), (50, 300)), 11),
+        ("one pair", "tri-mg", _triplet_case_pairs(33, 1, (70, 70), (0, 0)), 16),
+        # rows wider than a tile of 512 columns, no multiple of it
+        ("wide rows", "tri-mg", _triplet_case_pairs(34, 6, (100, 450), (600, 1400)), 64),
+    ]
+    errs = [check_triplet_case(dev, *c) for c in cases]
+    return max(e[0] for e in errs), max(e[1] for e in errs)
+
+
+def walk_columns(ops, j_end):
+    """(columns the walk computed again, summed over every block a pair was
+    active in; the number of those blocks), from the op rows [6 n_cod, B] and
+    each walk's last j."""
+    v = ops.reshape(-1, 6, ops.shape[1])
+    cnt, op = v >> 2, v & 3
+    consumed = (cnt * (op != 1)).sum(axis=1)  # descendant columns a block took
+    j_entry = j_end[None, :] + np.cumsum(consumed, axis=0)
+    active = cnt.sum(axis=1) > 0
+    return int(((j_entry + 1) * active).sum()), int(active.sum())
+
+
+def triplet_cell(dev, pairs):
+    """The two triplet kernels at one batch's shape: each timed against its
+    plain version and held equal to it on every true cell and op row."""
+    tb = TripletBatch(_triplet_model("tri-mg"), pairs, dev)
+    shape = (tb.n_cod + 1, 3, tb.B, tb.Cc)
+    grid = torch.empty(shape, dtype=torch.float32, device=dev)
+    amax = torch.empty(shape, dtype=torch.uint8, device=dev)
+    grid[0], amax[0] = tb.init, 0
+
+    def rows():
+        return trows_mod.triplet_rows(*tb.rows_args(), tb.init, keep_grid=True,
+                                      grid_out=grid[1:], amax_out=amax[1:])
+
+    rows_ms = elapsed_ms(rows, dev, 5)
+    (gp, ap, _), rows_plain_ms = _timed_once(lambda: trows_mod.triplet_rows_plain(
+        tb.aj, tb.dj, tb.io, *tb.tables, tb.init))
+    own = tb.true_cells(1)
+    if not (torch.equal(grid[1:][own], gp[own]) and torch.equal(amax[1:][own], ap[own])):
+        raise AssertionError("triplet cell: rows or lanes differ from the plain version")
+    rows_err = float((grid[1:][own] - gp[own]).abs().max())
+    del gp, ap, own
+
+    whole = [(0, tb.n_cod)]
+    st_k, ops_k = tb.walk(twalk_mod.triplet_walk, grid, amax, whole)
+    (st_p, ops_p), walk_plain_ms = _timed_once(
+        lambda: tb.walk(twalk_mod.triplet_walk_plain, grid, amax, whole))
+    if not (torch.equal(st_k, st_p) and torch.equal(ops_k, ops_p)):
+        raise AssertionError("triplet cell: the walk differs from the plain version")
+    walk_ms = elapsed_ms(lambda: tb.walk(twalk_mod.triplet_walk, grid, amax, whole), dev, 5)
+    walk_err = float(max((st_k - st_p).abs().max(), (ops_k - ops_p).abs().max()))
+
+    cells = int((tb.lens_t.astype(np.int64) * (tb.lens_m + 1)).sum())
+    row_cols = int((tb.lens_m + 1).sum())
+    in_bytes = sum(t.numel() * t.element_size() for t in (*tb.rows_args(), tb.init))
+    cols, blocks = walk_columns(ops_k.cpu().numpy(), st_k[1].cpu().numpy())
+    out = {
+        "shape": f"B={tb.B} n_cod={tb.n_cod} Cc={tb.Cc}", "cells": cells,
+        "rows_ms": rows_ms, "rows_plain_ms": rows_plain_ms, "rows_err": rows_err,
+        "walk_ms": walk_ms, "walk_plain_ms": walk_plain_ms, "walk_err": walk_err,
+        # inputs and the carry in; 15 B a true cell and the carry out
+        "rows_bound": bound(in_bytes + tw.GRID_CELL_BYTES * cells + 12 * row_cols,
+                            cells * CELL_OPS_TRIPLET),
+        # 12 B of boundary a column computed again, a lane and a codon a
+        # block, the sequences' columns once; the op rows and the state out
+        "walk_bound": bound(12 * cols + 5 * blocks + 8 * row_cols
+                            + ops_k.numel() * 4 + 24 * tb.B,
+                            cols * CELL_OPS_TRIPLET_WALK),
+    }
+    say("triplet", f"cell {out['shape']}: rows kernel {rows_ms:.3f} ms over {cells} "
+        f"true cells ({cells / rows_ms / 1e6:.3f} Gcells/s), plain "
+        f"{rows_plain_ms:.1f} ms; walk kernel {walk_ms:.3f} ms over {blocks} "
+        f"blocks and {cols} columns computed again, plain {walk_plain_ms:.1f} ms; "
+        f"both equal to plain")
+    return out
+
+
+def _no_end_stops(a, b):
+    d = SeqData(names=["a", "b"], seqs=[a, b])
+    utils.trim_end_stops(d)
+    return not any(d.stops)
+
+
+def run_triplet_batch(dev, card, n_pairs, nt, seed, n_plain):
+    """One tri-mg batch of n_pairs pairs of nt nt through batch_align."""
+    pairs = make_pairs(n_pairs, np.random.default_rng(seed), length_mix=[(nt, 1.0)])
+    named = [(f"anc{i}", a, f"des{i}", b) for i, (a, b) in enumerate(pairs)]
+    t0 = time.perf_counter()
+    _run_batch(named, dev, "tri-mg")
+    cold = time.perf_counter() - t0
+
+    reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    with KernelTimer(dev) as timer:
+        n, rows = _run_batch(named, dev, "tri-mg")
+    walls = [time.perf_counter() - t0]
+    launches = {name: launch_counts()[name] for name in ("triplet_rows", "triplet_walk")}
+    peak = torch.cuda.max_memory_allocated(dev)
+    if n != len(named) or len(rows) != len(named):
+        raise AssertionError(f"aligned {n} of {len(named)} pairs")
+    _check_rows(named, rows)
+    if min(launches.values()) == 0:
+        raise AssertionError(f"a kernel of the triplet path never launched: {launches}")
+    for _ in range(2):
+        t0 = time.perf_counter()
+        _run_batch(named, dev, "tri-mg")
+        walls.append(time.perf_counter() - t0)
+
+    with wrappers({name: PLAIN[name] for name in ("triplet_rows", "triplet_walk")}):
+        _, plain = _run_batch(named[:n_plain], dev, "tri-mg")
+    for i, (got, want) in enumerate(zip(plain, rows)):
+        if (got["alignment"], got["score"]) != (want["alignment"], want["score"]):
+            raise AssertionError(f"triplet pair {i} of {nt} nt: kernel path "
+                                 f"{want['score']} != plain {got['score']}")
+    # the alignment attains its score: an independent scorer, f64, in
+    # another order of operations
+    model = _triplet_model("tri-mg")
+    scored = [i for i, (a, b) in enumerate(pairs) if _no_end_stops(a, b)][:2]
+    for i in scored:
+        s0, s1 = rows[i]["alignment"].values()
+        sc = triplet_hmm.triplet_path_score(model, s0, s1)
+        if not abs(sc - rows[i]["score"]) <= 1e-4 * (1 + abs(sc)):
+            raise AssertionError(f"triplet pair {i}: score {rows[i]['score']} but "
+                                 f"its alignment scores {sc}")
+    rows_s, walk_s = timer.seconds("triplet_rows"), timer.seconds("triplet_walk")
+    w = sorted(walls)
+    say("triplet", f"[{card}] batch_align -m tri-mg, {n} pairs of {nt} nt: cold "
+        f"{cold:.2f} s, warm {', '.join(f'{x:.3f}' for x in walls)} s, median "
+        f"{n / w[1]:.1f} aln/s; rows {rows_s * 1e3:.1f} ms over "
+        f"{launches['triplet_rows']} launch, walk {walk_s * 1e3:.1f} ms over "
+        f"{launches['triplet_walk']} (CUDA events): the card busy "
+        f"{(rows_s + walk_s) / walls[0]:.1%} of that run's {walls[0]:.3f} s wall; "
+        f"peak device memory {peak / 2**20:.1f} MiB; all ungap to their inputs; "
+        f"the first {n_plain} equal the plain versions; {len(scored)} alignments "
+        f"attain their scores by triplet_path_score")
+    return {"launches": launches, "pairs": pairs}
+
+
+def _triplet_golden_matches(dev):
+    golden = json.loads(TRIPLET_GOLDEN.read_text())
+    named = triplet_golden_pairs(golden["seed"])
+    _, rows = _run_batch(named, dev, "tri-mg")
+    for want in golden["pairs"]:
+        got = golden_record(want["index"], rows[want["index"]])
+        if got != want:
+            raise AssertionError(f"triplet pair {want['index']}: {got} != JAX "
+                                 f"reference {want}")
+    return len(golden["pairs"])
+
+
+def _alignpair_row(tmp, a, b, argv):
+    """One pair through the CLI's alignpair into JSON."""
+    src, out = Path(tmp) / "pair.fasta", Path(tmp) / "out.json"
+    src.write_text(f">anc\n{a}\n>des\n{b}\n")
+    rc = cli.main(["alignpair", str(src), "-o", str(out), *argv])
+    if rc != 0:
+        raise AssertionError(f"alignpair {argv} failed: rc={rc}")
+    row = json.loads(out.read_text())
+    _check_rows([("anc", a, "des", b)], [row])
+    return row
+
+
+def _row_equals(what, row, want):
+    got = (*row["alignment"].values(), np.float32(row["score"]))
+    if got != (want[0], want[1], np.float32(want[2])):
+        raise AssertionError(f"{what}: {got[2]} and its strings differ from "
+                             f"{want[2]}")
+
+
+def _triplet_cli_pairs(dev, tmp):
+    """A tri-ecm pair large enough for the batched device engine and a dna
+    pair through alignpair, each against the host engine triplet_align."""
+    done = []
+    for model_name, nt, seed, on_card in (("tri-ecm", 600, 14, True), ("dna", 300, 15, False)):
+        (a, b), = make_pairs(1, np.random.default_rng(seed), length_mix=[(nt, 1.0)])
+        if not _no_end_stops(a, b):
+            raise AssertionError(f"the {model_name} pair ends in a stop codon")
+        reset_launch_counts()
+        row = _alignpair_row(tmp, a, b, ["-m", model_name, "--device", dev.type])
+        launched = launch_counts()["triplet_rows"] > 0 and launch_counts()["triplet_walk"] > 0
+        if launched != on_card:
+            raise AssertionError(f"alignpair -m {model_name}: kernels launched: {launched}")
+        _row_equals(f"alignpair -m {model_name}", row,
+                    triplet_hmm.triplet_align(_triplet_model(model_name), a, b))
+        done.append(f"{model_name} {len(a)} x {len(b)} nt")
+    return done
+
+
+def check_triplet_wide_segment(dev, a, b, t0, S):
+    """The kernels at the long pair's width against the plain versions:
+    codon blocks t0 .. t0 + S - 1 of the pair (a, b), one segment of the
+    segmented path from its checkpoint. The rows and lanes of the whole-grid
+    sweep there, the carry form from boundary t0 with the grid and without,
+    and the walk through the segment from the state the walk above it left,
+    all equal to plain from the same boundary and state (tolerance 0).
+    Returns the largest differences (rows, walk)."""
+    tb = TripletBatch(_triplet_model("tri-mg"), [(a, b)], dev)
+    grid, amax = tw._triplet_rows(*tb.rows_args())
+    anc_seg = tb.aj[:, t0:t0 + S].contiguous()
+    carry = grid[t0].contiguous()
+    gp, ap, cp = trows_mod.triplet_rows_plain(anc_seg, tb.dj, tb.io, *tb.tables, carry)
+    steps = torch.full((1,), S, dtype=torch.int32, device=dev)
+    args = (anc_seg, tb.dj, tb.io, steps, tb.lm, *tb.tables, carry)
+    g2, a2, c2 = trows_mod.triplet_rows(*args, keep_grid=True)
+    _, _, c3 = trows_mod.triplet_rows(*args, keep_grid=False)
+    _sync(dev)
+    for what, got, want in (
+            ("boundary rows of the whole sweep", grid[t0 + 1:t0 + S + 1], gp),
+            ("argmax lanes of the whole sweep", amax[t0 + 1:t0 + S + 1], ap),
+            ("boundary rows of the carry form", g2, gp),
+            ("argmax lanes of the carry form", a2, ap),
+            ("the carry out with the grid", c2, cp),
+            ("the carry out alone", c3, cp)):
+        if not torch.equal(got, want):
+            raise AssertionError(f"triplet wide segment: {what} differ from the plain "
+                                 f"version ({int((got != want).sum())} cells)")
+    rows_err = float((g2 - gp).abs().max())
+    del g2, a2, gp, ap
+
+    above = [(lo, min(S, tb.n_cod - lo)) for lo in range(t0 + S, tb.n_cod, S)]
+    state, ops = tb.walk(twalk_mod.triplet_walk, grid, amax, above)
+    j_in = int(state[1, 0])
+
+    def through(fn):
+        st, op = state.clone(), ops.clone()
+        fn(grid[t0:t0 + S + 1], amax[t0 + 1:t0 + S + 1], anc_seg, tb.dj, tb.io, t0,
+           st, op, *tb.tables)
+        return st, op
+
+    (st_k, ops_k), (st_p, ops_p) = through(twalk_mod.triplet_walk), through(
+        twalk_mod.triplet_walk_plain)
+    _sync(dev)
+    if not (torch.equal(st_k, st_p) and torch.equal(ops_k, ops_p)):
+        raise AssertionError("triplet wide segment: state or op rows of the walk "
+                             "differ from the plain version")
+    if int(state[0, 0]) <= 3 * t0 or int(st_p[0, 0]) != 3 * t0:
+        raise AssertionError("triplet wide segment: the walk did not cross the segment")
+    walk_err = float(max((st_k - st_p).abs().max(), (ops_k - ops_p).abs().max()))
+    block = trows_mod.block_threads(tb.Cc)
+    say("kernels", f"triplet wide segment: tri-mg {len(a)} x {len(b)} nt, codon blocks "
+        f"{t0}..{t0 + S - 1} from the boundary under them, Cc={tb.Cc} "
+        f"({-(-tb.Cc // block)} tiles of {block} columns): rows and lanes on "
+        f"{S * tb.Cc} cells from the whole sweep and from the carry form, the carry "
+        f"out with and without the grid, the walk's state and {6 * S} op rows "
+        f"through the segment (entered at column {j_in}, left at {int(st_p[1, 0])}): "
+        f"equal to plain")
+    return rows_err, walk_err
+
+
+def triplet_long_pair(nt):
+    (pair,) = make_pairs(1, np.random.default_rng(13), length_mix=[(nt, 1.0)])
+    return pair
+
+
+def run_triplet_longpair(dev, card, tmp, a, b):
+    """One pair just over the default byte budget through alignpair -m
+    tri-mg: the segmented path, held to the full-grid route on the card."""
+    if not (tw.is_long_pair(len(a), len(b)) and _no_end_stops(a, b)):
+        raise AssertionError("the long triplet pair is not routed to the "
+                             "segmented path, or ends in a stop codon")
+    reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    with KernelTimer(dev) as timer:
+        row = _alignpair_row(tmp, a, b, ["-m", "tri-mg"])
+    wall = time.perf_counter() - t0
+    launches = {name: launch_counts()[name] for name in ("triplet_rows", "triplet_walk")}
+    peak = torch.cuda.max_memory_allocated(dev)
+    n_seg = -(-(len(a) // 3) // tw.seg_cods_for(len(b) + 1))
+    if launches != {"triplet_rows": 2 * n_seg, "triplet_walk": n_seg} or n_seg < 2:
+        raise AssertionError(f"long triplet pair: launches {launches} for {n_seg} segments")
+    model = _triplet_model("tri-mg")
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    full = tw._align_group(model, [(a, b)],
+                           [triplet_hmm.encode_triplet_pair(model, a, b)], "device", dev)[0]
+    full_wall = time.perf_counter() - t0
+    full_peak = torch.cuda.max_memory_allocated(dev)
+    _row_equals("long triplet pair against the full-grid route", row, full)
+    rows_s, walk_s = timer.seconds("triplet_rows"), timer.seconds("triplet_walk")
+    say("triplet", f"[{card}] {len(a)} x {len(b)} nt through alignpair -m tri-mg: "
+        f"{wall:.2f} s wall, {n_seg} segments of {tw.seg_cods_for(len(b) + 1)} codon "
+        f"blocks, rows {rows_s:.2f} s over {launches['triplet_rows']} launches (two "
+        f"sweeps), walk {walk_s * 1e3:.1f} ms over {launches['triplet_walk']} (CUDA "
+        f"events): the card busy {(rows_s + walk_s) / wall:.1%}; peak device memory "
+        f"{peak / 2**20:.1f} MiB; equal in strings and f32 score to the full-grid "
+        f"route ({full_wall:.2f} s wall, peak {full_peak / 2**20:.1f} MiB)")
+    return launches
+
+
+def phase_triplet(dev, card):
+    rows_err, walk_err = phase_triplet_kernels(dev)
+    runs = [run_triplet_batch(dev, card, *shape, n_plain)
+            for shape, n_plain in zip(TRIPLET_BATCHES, (8, 2))]
+    n_golden = _triplet_golden_matches(dev)
+    long_a, long_b = triplet_long_pair(TRIPLET_LONG_NT)
+    with tempfile.TemporaryDirectory() as tmp:
+        cli_pairs = _triplet_cli_pairs(dev, tmp)
+        run_triplet_longpair(dev, card, tmp, long_a, long_b)
+    say("triplet", f"{n_golden} golden pairs equal the JAX reference; alignpair "
+        f"equals the host engine on {' and '.join(cli_pairs)}")
+    # the kernels against plain at every width the path ran them at: a middle
+    # segment of the long pair, then both batches (the first is the cell)
+    seg = tw.seg_cods_for(len(long_b) + 1)
+    t_mid = len(long_a) // 3 // seg // 2 * seg
+    wide = check_triplet_wide_segment(dev, long_a, long_b, t_mid, seg)
+    cell, second = (triplet_cell(dev, run["pairs"]) for run in runs)
+    cell["launches"] = runs[0]["launches"]
+    cell["rows_err"] = max(cell["rows_err"], second["rows_err"], rows_err, wide[0])
+    cell["walk_err"] = max(cell["walk_err"], second["walk_err"], walk_err, wide[1])
+    return cell
+
 
 def main() -> int:
     dev, card = phase_device()
@@ -1583,8 +2131,9 @@ def main() -> int:
     run_longpair(dev, card, LONGPAIR_NT)
     sample_run = phase_sample(dev, card)
     phase_msa(dev, card)
+    triplet_run = phase_triplet(dev, card)
     phase_numbers(card, main_shape, main_run, long_run, score_cell(dev), sample_run,
-                  {"fill": fill_err, "walk": walk_err, "segment": seg_err,
+                  triplet_run, {"fill": fill_err, "walk": walk_err, "segment": seg_err,
                    "segment_walk": seg_walk_err, "forward": fwd_err,
                    "sample_walk": sample_walk_err})
     bad = sorted(m for m in sys.modules

@@ -3,13 +3,17 @@
 The JAX package `coati_tpu` stays the reference the tests hold this package
 to, but this package imports nothing of it: it keeps its own copies of the
 host modules it needs (constants, structs, utils, version, profiling, io/,
-models/, align/semiring, align/score) under the same names, and owns every
-module that touches a device. Ported so far: marginal Viterbi alignment of
-pair batches (`alignpair`, `batch`), long pairs through the segmented
-two-pass path, and score-only Viterbi, each on hand-written CUDA kernels
-with plain PyTorch versions beside them. Still to port (ROADMAP.md, "Modules
-to port"): sampling (item 8), triplet models (item 9), msa and the other
-verbs (item 5), multi-device (item 10).
+models/, align/semiring, align/score, rng, format, msa/, triplet_hmm) under
+the same names, and owns every
+module that touches a device. Ported: all seven verbs of the CLI; marginal
+Viterbi alignment of pair batches (`alignpair`, `batch`, `msa`), long pairs
+through the segmented two-pass path, score-only Viterbi, sampling from the
+Forward distribution (`sample`), and the triplet models tri-mg, tri-ecm and
+dna (`alignpair`, `batch`) with their own segmented path; every device kernel
+of the JAX package has a hand-written CUDA kernel here with a plain PyTorch
+version beside it. Still to port (ROADMAP.md, "Modules to port"): multi-device
+and --multihost (item 10), the benchmark (item 6), --trace-dir and the tools
+(item 11).
 """
 
 __version__ = "0.1.0"

@@ -1,5 +1,5 @@
 """Batch alignment stream with a resume manifest (counterpart of
-coati_tpu/batchrun.py, marginal models only).
+coati_tpu/batchrun.py).
 
 One JSON line per pair goes to the output stream, and every finished pair
 index to the manifest, so a restarted run skips finished work.
@@ -13,6 +13,7 @@ import sys
 
 import numpy as np
 
+from coati_tpu_torch import constants as C
 from coati_tpu_torch import utils
 from coati_tpu_torch.io.fasta import read_fasta
 from coati_tpu_torch.structs import AlignmentParams, SeqData
@@ -31,6 +32,21 @@ def read_pairs_fasta(path: str):
             (data.names[i], data.seqs[i], data.names[i + 1], data.seqs[i + 1])
         )
     return pairs
+
+
+def _validate_triplet_pair(anc: str) -> None:
+    """Per-pair ancestor validation for the triplet path (utils.cc:1102-1135
+    semantics, applied per stream record instead of per process)."""
+    if len(anc) % 3 != 0:
+        raise ValueError("Length of reference sequence must be multiple of 3.")
+    up = anc.upper()
+    for i in range(0, len(up) - 3, 3):
+        if up[i : i + 3] in C.STOP_CODON_STRS:
+            raise ValueError("Early stop codon in ancestor.")
+    if any(ch not in "ACGTUacgtu" for ch in anc):
+        raise ValueError(
+            "Ambiguous nucleotides in reference sequence not supported."
+        )
 
 
 def _load_done(manifest: str) -> set:
@@ -54,20 +70,30 @@ def batch_align(
     index_offset: int = 0,
     device="cuda",
 ) -> int:
-    """Align `pairs` [(name_a, seq_a, name_b, seq_b), ...] under the marginal
-    model in aln; write one JSON line per pair to out_stream; record
-    completed indices in `manifest`. Returns the number of pairs aligned.
+    """Align `pairs` [(name_a, seq_a, name_b, seq_b), ...] under the model in
+    aln; write one JSON line per pair to out_stream; record completed indices
+    in `manifest`. Returns the number of pairs aligned.
+
+    The marginal models go through align/engine.py viterbi_align_batch, the
+    triplet models (tri-mg, tri-ecm, dna) through
+    triplet_wavefront.triplet_align_batch, which cuts a chunk into
+    sub-batches that fit the device.
 
     meter: optional profiling.ThroughputMeter."""
-    from coati_tpu_torch.align.engine import viterbi_align_batch
+    from coati_tpu_torch.align.engine import AlignResult, viterbi_align_batch
     from coati_tpu_torch.device import resolve_device
 
-    if not aln.is_marginal():
-        raise NotImplementedError(
-            f"model {aln.model} is not yet ported to coati_tpu_torch "
-            "(triplet models: ROADMAP.md, Modules to port, item 9)")
     dev = resolve_device(device)
     utils.set_subst(aln)
+    triplet_model = None
+    if not aln.is_marginal():
+        from coati_tpu_torch.triplet_hmm import (
+            build_triplet_model,
+            encode_triplet_pair,
+        )
+        from coati_tpu_torch.triplet_wavefront import triplet_align_batch
+
+        triplet_model = build_triplet_model(aln)
     done = _load_done(manifest)
     mf = open(manifest, "a") if manifest else None
 
@@ -80,8 +106,14 @@ def batch_align(
                 na, sa, nb, sb = pairs[i]
                 d = SeqData(names=[na, nb], seqs=[sa, sb])
                 try:
-                    utils.trim_end_stops(d)
-                    ea, eb = utils.encode_marginal(d.seqs[0], d.seqs[1])
+                    if triplet_model is not None:
+                        _validate_triplet_pair(d.seqs[0])
+                        utils.trim_end_stops(d)
+                        ea, eb = encode_triplet_pair(
+                            triplet_model, d.seqs[0], d.seqs[1])
+                    else:
+                        utils.trim_end_stops(d)
+                        ea, eb = utils.encode_marginal(d.seqs[0], d.seqs[1])
                 except ValueError as exc:
                     out_stream.write(json.dumps(
                         {"pair": i + index_offset, "error": str(exc)}) + "\n")
@@ -98,6 +130,11 @@ def batch_align(
                 continue
 
             def run_chunk():
+                if triplet_model is not None:
+                    trip = triplet_align_batch(
+                        triplet_model, list(zip(astrs, bstrs)), device=dev,
+                        enc=list(zip(enc_as, enc_bs)))
+                    return [AlignResult(s0, s1, sc) for s0, s1, sc in trip]
                 return viterbi_align_batch(
                     enc_as, enc_bs, astrs, bstrs, aln.subst_matrix, aln.gap,
                     device=dev,

@@ -1,11 +1,12 @@
 """Command-line interface: coati-tpu-torch <verb> (counterpart of
 coati_tpu/cli.py).
 
-All seven verbs, for the marginal models: alignpair (and -s scoring), msa,
-sample, format, genseed, version, batch. Those that align take --device
-{cuda,cpu}, default cuda; asking for cuda where there is none is an error,
-not a silent move to the CPU. Not ported: the triplet models, --multihost,
---trace-dir.
+All seven verbs: alignpair (and -s scoring), msa, sample, format, genseed,
+version, batch. alignpair and batch take all five models (mar-mg, mar-ecm,
+tri-mg, tri-ecm, dna); msa and sample the marginal ones, as in the JAX
+package. Those that align take --device {cuda,cpu}, default cuda; asking for
+cuda where there is none is an error, not a silent move to the CPU. Not
+ported: --multihost, --trace-dir.
 """
 
 from __future__ import annotations
@@ -85,7 +86,7 @@ def cmd_alignpair(argv) -> int:
         prog=f"{PROG} alignpair",
         description="coati alignpair - pairwise alignment of nucleotide sequences",
     )
-    _add_model_opts(p, "Substitution model (mar-mg mar-ecm)")
+    _add_model_opts(p, "Substitution model (dna tri-mg tri-ecm mar-mg mar-ecm)")
     p.add_argument("-r", "--ref", default="", dest="refs",
                    help="Name of reference sequence (default: 1st seq)")
     p.add_argument("-v", "--rev-ref", action="store_true", dest="rev",
@@ -105,13 +106,13 @@ def cmd_alignpair(argv) -> int:
     aln.refs = args.refs
     aln.rev = args.rev
     aln.score = args.score
-    if not aln.is_marginal():
-        raise NotImplementedError(
-            f"model {aln.model} is not yet ported to {PROG} "
-            "(triplet models: ROADMAP.md, Modules to port, item 9)")
-    from coati_tpu_torch.driver import marg_alignment
+    if aln.is_marginal():
+        from coati_tpu_torch.driver import marg_alignment
 
-    return 0 if marg_alignment(aln, device=args.device) else 1
+        return 0 if marg_alignment(aln, device=args.device) else 1
+    from coati_tpu_torch.triplet_hmm import triplet_align_driver
+
+    return 0 if triplet_align_driver(aln, device=args.device) else 1
 
 
 def _seeded_rng(seeds):

@@ -65,6 +65,12 @@ SIGNATURES = {
     "coati_wavefront_forward": [_P] * 10 + [_I] * 7 + [_P],
     # mdi enc_a enc_b table gap uniforms ops scores, R Cc k N n_steps, stream
     "coati_sample_walk": [_P] * 8 + [_I] * 5 + [_P],
+    # anc_cods des ins_off steps lens_m logP64 match_emit gc carry_in grid
+    # amax carry_out scratch, B m S threads, stream
+    "coati_triplet_rows": [_P] * 13 + [_I] * 4 + [_P],
+    # grid amax anc_seg des ins_off logP64 match_emit gc state ops scratch,
+    # B m S t_lo threads, stream
+    "coati_triplet_walk": [_P] * 11 + [_I] * 5 + [_P],
 }
 
 _lib = None

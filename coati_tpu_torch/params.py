@@ -115,3 +115,44 @@ def forward_to_numpy(mdi, corners):
         planes.append(S)
     cm, cd, ci = (float(c) for c in corners)
     return planes[0], planes[1], planes[2], (cm, cd, ci)
+
+
+def triplet_tables_from_numpy(logP64, match_emit, gc, device):
+    """The triplet tables of the JAX package's _pack_batch (logP64 [61, 64],
+    match_emit [4, 5], gc [4]) as contiguous f32 tensors on `device`."""
+    shapes = ((61, 64), (4, 5), (4,))
+    out = []
+    for arr, shape in zip((logP64, match_emit, gc), shapes):
+        a = np.array(arr, dtype=np.float32, order="C")  # a writable copy
+        if a.shape != shape:
+            raise ValueError(f"triplet table must be {shape}, got {a.shape}")
+        out.append(torch.from_numpy(a).to(device))
+    return tuple(out)
+
+
+def triplet_carry_from_numpy(carry, device):
+    """The triplet sweep's carry as the JAX package's _triplet_rows_carry
+    takes it, (Mc, Dc, Ic) each [B, Cc], as the port's [3, B, Cc] f32."""
+    stacked = np.stack([np.asarray(c, dtype=np.float32) for c in carry])
+    if stacked.ndim != 3 or stacked.shape[0] != 3:
+        raise ValueError(f"carry must be three [B, Cc] arrays, got {stacked.shape}")
+    return torch.from_numpy(stacked).to(device)
+
+
+def triplet_carry_to_numpy(carry):
+    """The port's [3, B, Cc] carry as the JAX package's (Mc, Dc, Ic)."""
+    c = carry.cpu().numpy()
+    return c[0], c[1], c[2]
+
+
+def triplet_state_from_numpy(i, j, st, device):
+    """The triplet walk's state (i, j, st), each [B], as the port's [3, B]
+    int32 tensor."""
+    state = np.stack([np.asarray(x).astype(np.int32) for x in (i, j, st)])
+    return torch.from_numpy(state).to(device)
+
+
+def triplet_state_to_numpy(state):
+    """The port's [3, B] walk state as (i, j, st) int32 arrays."""
+    s = state.cpu().numpy()
+    return s[0], s[1], s[2]

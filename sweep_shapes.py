@@ -2,7 +2,9 @@
 """Time the port's sweep kernel (coati_tpu_torch/csrc/wavefront_segment.cu)
 at several launch shapes, and hold every shape to the one-block result.
 
-    python3 sweep_shapes.py      # from the repository root; needs one card
+    python3 sweep_shapes.py [segment] [forward] [triplet]
+                                 # from the repository root; needs one card;
+                                 # no argument: all three tables
 
 For square random pairs of several sizes, alone and in a group of four, and
 for several (blocks a pair, threads a block), it runs one 4,000-diagonal
@@ -24,6 +26,13 @@ block that computes it; a difference within FWD_ATOL + FWD_RTOL * |value|
 would be reported, a larger one raises), timed beside the score-only sweep
 at the same shape, with the shape the wrapper chooses
 (kernels/wavefront_forward.py forward_shape) marked.
+
+Last the two triplet kernels (csrc/triplet_rows.cu, csrc/triplet_walk.cu),
+which sweep a row one column a thread, a tile of the block's threads at a
+time: the two tri-mg batches chip_smoke.py aligns and the first 512 codon
+steps of its long pair, with blocks of 128 to 512 threads (the most the
+kernels are compiled for), each held equal to the 512-thread result on the
+pairs' own cells and op rows.
 """
 
 from __future__ import annotations
@@ -37,7 +46,17 @@ sys.path.insert(0, str(Path(__file__).resolve().parent))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
+from chip_smoke import (  # noqa: E402
+    TRIPLET_BATCHES,
+    TRIPLET_LONG_NT,
+    TripletBatch,
+    make_pairs,
+)
+from coati_tpu_torch import triplet_hmm  # noqa: E402
+from coati_tpu_torch import triplet_wavefront as tw  # noqa: E402
 from coati_tpu_torch.kernels import (  # noqa: E402
+    triplet_rows,
+    triplet_walk,
     wavefront_forward,
     wavefront_score,
     wavefront_segment,
@@ -51,6 +70,8 @@ THREADS = (1024, 512)
 FORWARD_SIZES = (9_999, 29_397)  # nt of the one pair
 FORWARD_BLOCKS = (1, 4, 8, 10, 16, 20, 29, 33, 58, 66, 132)
 FWD_RTOL, FWD_ATOL = 4e-6, 2e-5  # chip_smoke.py's, of the Forward's values
+TRIPLET_THREADS = (512, 256, 128)  # the first is what the rest is held to
+TRIPLET_LONG_STEPS = 512  # codon steps of the long pair that are swept
 
 
 def elapsed_ms(fn, reps: int = 2) -> float:
@@ -122,7 +143,54 @@ def forward_table(dev, card, p):
         del want, want_adj
 
 
-def main() -> int:
+def triplet_table(dev, card):
+    """The triplet rows and walk kernels with blocks of 128 to 512 threads (8
+    to 2 tiles a 1,000-column row), each held to the result at 512, the
+    wrappers' own choice (kernels/triplet_rows.py THREADS, which both take)."""
+    model = triplet_hmm.build_triplet_model(alignment_params("tri-mg"))
+    shapes = [(n, nt, seed, None) for n, nt, seed in TRIPLET_BATCHES]
+    shapes.append((1, TRIPLET_LONG_NT, 13, TRIPLET_LONG_STEPS))
+    chosen = triplet_rows.THREADS
+    for n, nt, seed, steps in shapes:
+        pairs = make_pairs(n, np.random.default_rng(seed), length_mix=[(nt, 1.0)])
+        if steps:  # the first codon steps of the ancestor against all of des
+            pairs = [(a[:3 * steps], b) for a, b in pairs]
+        tb = TripletBatch(model, pairs, dev)
+        own = tb.true_cells()
+        whole = [(0, tb.n_cod)]
+        want = None
+        try:
+            for threads in TRIPLET_THREADS:
+                triplet_rows.THREADS = threads
+                grid, amax = tw._triplet_rows(*tb.rows_args())
+                state, ops = tb.walk(triplet_walk.triplet_walk, grid, amax, whole)
+                got = (grid[own], amax[own], state, ops)
+                if want is None:
+                    want = got
+                elif not all(torch.equal(g, w) for g, w in zip(got, want)):
+                    raise AssertionError(f"triplet {n} x {nt} nt, {threads} threads: "
+                                         f"differs from {TRIPLET_THREADS[0]} threads")
+                rows_ms = elapsed_ms(lambda: tw._triplet_rows(*tb.rows_args()))
+                walk_ms = elapsed_ms(lambda: tb.walk(triplet_walk.triplet_walk,
+                                                     grid, amax, whole))
+                block = triplet_rows.block_threads(tb.Cc)
+                tiles = -(-tb.Cc // block)
+                print(f"[{card}] triplet {n} x {nt} nt ({tb.n_cod} codon steps, "
+                      f"{tb.Cc} columns), {block} threads a block = {tiles} "
+                      f"tiles a row: equal to {TRIPLET_THREADS[0]} threads; rows "
+                      f"{rows_ms:.3f} ms = {rows_ms / tb.n_cod / tiles * 1e3:.2f} us a "
+                      f"step and tile, walk {walk_ms:.3f} ms = "
+                      f"{walk_ms / tb.n_cod * 1e3:.2f} us a block", flush=True)
+                del grid, amax, got
+        finally:
+            triplet_rows.THREADS = chosen
+        del want, own
+
+
+def main(argv=None) -> int:
+    tables = set(sys.argv[1:] if argv is None else argv) or {"segment", "forward", "triplet"}
+    if tables - {"segment", "forward", "triplet"}:
+        raise SystemExit("sweep_shapes: tables are segment, forward, triplet")
     if not torch.cuda.is_available():
         raise SystemExit("sweep_shapes: needs a CUDA device")
     dev = torch.device("cuda:0")
@@ -131,6 +199,18 @@ def main() -> int:
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip().splitlines()[0].strip()
     print(card, flush=True)
+    if "triplet" in tables:
+        triplet_table(dev, card)
+    if "segment" in tables:
+        segment_table(dev, card)
+    if "forward" in tables:
+        aln = alignment_params()
+        forward_table(dev, card, params_from_numpy(aln.subst_matrix, aln.gap, dev))
+    return 0
+
+
+def segment_table(dev, card):
+    """The segment kernel at every launch shape, against one block a pair."""
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     aln = alignment_params()
     p = params_from_numpy(aln.subst_matrix, aln.gap, dev)
@@ -185,8 +265,6 @@ def main() -> int:
         print(f"[{card}] {B} x {n} nt, chosen {blocks} x {threads}: score-only sweep "
               f"{ms:.1f} ms = {B * n * n / ms / 1e6:.2f} Gcells/s, "
               f"{ms / (2 * n) * 1e3:.2f} us a diagonal", flush=True)
-    forward_table(dev, card, p)
-    return 0
 
 
 if __name__ == "__main__":

@@ -75,9 +75,9 @@ def test_batch_matches_jax_cli(tmp_path):
 
 
 def test_not_ported_verbs_and_models_exit_1(tmp_path, capsys):
-    """Every verb is ported now; what is left says so and exits 1: the
-    triplet models and --multihost. msa and sample take marginal models
-    only, as in the JAX package."""
+    """Every verb and every model is ported now; what is left says so and
+    exits 1: --multihost. msa and sample take marginal models only, as in
+    the JAX package; alignpair takes the triplet models."""
     src = tmp_path / "pair.fasta"
     src.write_text(PAIR)
     assert sorted(torch_cli.VERBS) == sorted(jax_cli.VERBS)
@@ -86,9 +86,11 @@ def test_not_ported_verbs_and_models_exit_1(tmp_path, capsys):
         assert "MSA only supports marginal models" in capsys.readouterr().err
         assert main(["sample", str(src), "-m", "tri-mg"]) == 1
         assert "Sampling only available" in capsys.readouterr().err
+    out = tmp_path / "tri.fasta"
     assert torch_cli.main(["alignpair", str(src), "-m", "tri-mg",
-                           "--device", "cpu"]) == 1
-    assert "not yet ported" in capsys.readouterr().err
+                           "--device", "cpu", "-o", str(out)]) == 0
+    assert "not yet ported" not in capsys.readouterr().err
+    assert "CT----ATAGTG" in out.read_text()
     assert torch_cli.main(["batch", str(src), "--multihost",
                            "--device", "cpu"]) == 1
     assert "not yet ported" in capsys.readouterr().err
@@ -106,7 +108,9 @@ def _msa_inputs(tmp_path):
 
 def test_port_never_imports_jax(tmp_path):
     """Importing the port, aligning one pair with alignpair and a stream with
-    batch, sampling on both routes and one msa on the CPU leaves jax, the JAX
+    batch under a marginal and a triplet model (the latter through the batched
+    engine and the segmented path too), sampling on both routes and one msa on
+    the CPU leaves jax, the JAX
     package coati_tpu and bench out of sys.modules (a subprocess, since this
     test process imports them)."""
     fasta, tree = _msa_inputs(tmp_path)
@@ -129,6 +133,14 @@ def test_port_never_imports_jax(tmp_path):
         f"rc = main(['sample', {str(src)!r}, '-n', '3', '-s', '5', '--device', 'cpu',\n"
         f"           '-o', {str(samples[0])!r}])\n"
         "assert rc == 0, rc\n"
+        f"rc = main(['alignpair', {str(src)!r}, '-m', 'tri-mg', '--device', 'cpu',\n"
+        f"           '-o', {str(tmp_path / 'tri.fasta')!r}])\n"
+        "assert rc == 0, rc\n"
+        "from coati_tpu_torch import triplet_wavefront\n"
+        "triplet_wavefront.TRIPLET_GRID_BUDGET_BYTES = 400\n"
+        f"rc = main(['batch', {str(pairs)!r}, '-m', 'tri-mg', '--device', 'cpu',\n"
+        f"           '-o', {str(tmp_path / 'tri.jsonl')!r}])\n"
+        "assert rc == 0, rc\n"
         "from coati_tpu_torch import driver\n"
         "driver.NATIVE_SAMPLE_CELLS = 0\n"
         f"rc = main(['sample', {str(src)!r}, '-n', '3', '-s', '5', '--device', 'cpu',\n"
@@ -147,7 +159,9 @@ def test_port_never_imports_jax(tmp_path):
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip() == "ok"
     assert "CT----ATAGTG" in out.read_text()
+    assert "CT----ATAGTG" in (tmp_path / "tri.fasta").read_text()
     assert len(rows.read_text().splitlines()) == 4
+    assert len((tmp_path / "tri.jsonl").read_text().splitlines()) == 4
     assert all(len(json.loads(path.read_text())) == 3 for path in samples)
     assert msa_out.read_text().count(">") == 5
 
@@ -354,4 +368,98 @@ def test_msa_matches_jax_cli(tmp_path, out_name):
     fasta, tree = _msa_inputs(tmp_path)
     got_jax, got_torch = _outputs(tmp_path, ["msa", fasta, tree, "A"],
                                   ("--device", "cpu"), out_name)
+    assert got_jax == got_torch and got_torch
+
+
+TRIPLET_PAIR = ">anc\nATGCTCTGGATAGTGCCCTAA\n>des\nATGCTATAGTGCNCTAA\n"
+TRIPLET_PAIRS = PAIRS + (
+    ">a4\nATGTAACCC\n>d4\nATGCCC\n"      # early stop codon
+    ">a5\nATGNCC\n>d5\nATGCC\n"          # ambiguous ancestor
+    ">a6\nATGCC\n>d6\nATGCC\n"           # length no multiple of 3
+    ">a7\nATGCCC\n>d7\nATGRCC\n"         # a descendant symbol the model lacks
+    ">a8\nCTCTGGATAGTG\n>d8\nCTATAGTG\n"
+)
+
+
+@pytest.mark.parametrize("model,out_name", [("tri-mg", "out.json"),
+                                            ("tri-mg", "out.fasta"),
+                                            ("tri-ecm", "out.json"),
+                                            ("dna", "out.phy")])
+def test_triplet_alignpair_matches_jax_cli(tmp_path, model, out_name):
+    """alignpair under the triplet models, a pair with N and end stop codons:
+    the JAX CLI's bytes."""
+    got_jax, got_torch = _run_both(tmp_path, "pair.fasta", TRIPLET_PAIR,
+                                   ["alignpair", "-m", model], out_name)
+    assert got_jax == got_torch and got_torch
+
+
+@pytest.mark.parametrize("model", ["tri-mg", "tri-ecm", "dna"])
+def test_triplet_batch_matches_jax_cli(tmp_path, model):
+    """batch under the triplet models, rejects included (the marginal
+    stream's bad record, an early stop, an ambiguous ancestor, a length that
+    is no multiple of 3, a descendant symbol outside ACGTN): the JAX CLI's
+    bytes."""
+    got_jax, got_torch = _run_both(tmp_path, "pairs.fasta", TRIPLET_PAIRS,
+                                   ["batch", "-m", model], "out.jsonl")
+    assert got_jax == got_torch
+    rows = [json.loads(line) for line in got_torch.decode().splitlines()]
+    assert [r["pair"] for r in rows if "error" in r] == [3, 4, 5, 6, 7]
+    assert len({r["error"] for r in rows if "error" in r}) == 4
+    assert sum("alignment" in r for r in rows) == 4
+
+
+def test_triplet_rejects_match_jax_cli(tmp_path, capsys):
+    """What triplet_align_driver refuses, it refuses with the JAX CLI's exit
+    code and message: -s, an early stop, an ambiguous ancestor, a reference
+    whose length is no multiple of 3."""
+    cases = [(ALIGNED, ["-s"], "Scoring only works with marginal models"),
+             (">a\nATGTAACCC\n>d\nATGCCC\n", [], "Early stop codon"),
+             (">a\nATGNCC\n>d\nATGCC\n", [], "Ambiguous nucleotides"),
+             (">a\nATGCC\n>d\nATGCC\n", [], "multiple of 3")]
+    for n, (text, extra, message) in enumerate(cases):
+        src = tmp_path / f"bad{n}.fasta"
+        src.write_text(text)
+        errs = []
+        for main, device in ((jax_cli.main, []), (torch_cli.main, ["--device", "cpu"])):
+            assert main(["alignpair", str(src), "-m", "tri-mg", *extra, *device]) == 1
+            errs.append(capsys.readouterr().err)
+        assert errs[0] == errs[1] and message in errs[1]
+
+
+@pytest.mark.parametrize("route", ["batch engine", "segmented"])
+def test_triplet_routes_match_jax_cli(tmp_path, monkeypatch, route):
+    """A 540 nt pair through alignpair -m tri-mg on the batched engine (over
+    250,000 nt x nt in both packages) and, with both packages' thresholds
+    shrunk, on the segmented path in segments of 11 blocks: each route is
+    taken, and the CLIs write the same bytes."""
+    import random
+
+    import coati_tpu.triplet_wavefront as jax_tw
+    import coati_tpu_torch.triplet_wavefront as torch_tw
+    from coati_tpu.constants import CODONS61
+
+    rng = random.Random(3)
+    anc = "".join(rng.choice(CODONS61) for _ in range(180))
+    des = list(anc)
+    for _ in range(30):
+        des[rng.randrange(len(des))] = rng.choice("ACGT")
+    des = "".join(des)[:200] + "ACGTT" + "".join(des)[200:-9]
+    calls = []
+    name = "triplet_align_batch" if route == "batch engine" else "triplet_align_long"
+    for mod in (jax_tw, torch_tw):
+        real = getattr(mod, name)
+
+        def spy(*a, _real=real, _mod=mod.__name__, **kw):
+            calls.append(_mod)
+            if name == "triplet_align_long":
+                kw["seg_cods"] = 11
+            return _real(*a, **kw)
+
+        monkeypatch.setattr(mod, name, spy)
+    if route == "segmented":
+        monkeypatch.setattr(jax_tw, "TRIPLET_LONG_GRID_CELLS", 1000)
+        monkeypatch.setattr(torch_tw, "TRIPLET_GRID_BUDGET_BYTES", 15_000)
+    got_jax, got_torch = _run_both(tmp_path, "big.fasta", f">1\n{anc}\n>2\n{des}\n",
+                                   ["alignpair", "-m", "tri-mg"], "out.json")
+    assert calls == ["coati_tpu.triplet_wavefront", "coati_tpu_torch.triplet_wavefront"]
     assert got_jax == got_torch and got_torch

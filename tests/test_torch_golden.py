@@ -17,6 +17,10 @@ that coati_tpu's msa verb writes for chip_smoke's make_msa_inputs at
 MSA_GOLDEN_SHAPE (12 leaves with 12 different distances to a 300 nt
 reference).
 
+tests/data/torch_triplet_golden.json holds the score and a sha256 of the
+aligned strings that coati_tpu's batch_align gives under tri-mg for
+chip_smoke's triplet_golden_pairs (24 pairs of 156 and 471 nt).
+
 Regenerate with: JAX_PLATFORMS=cpu python tests/test_torch_golden.py
 """
 
@@ -39,12 +43,14 @@ from chip_smoke import (  # noqa: E402
     LONG_GOLDEN_SLOTS,
     MSA_GOLDEN,
     MSA_GOLDEN_SHAPE,
+    TRIPLET_GOLDEN,
     golden_record,
     long_golden_pairs,
     long_golden_record,
     make_msa_inputs,
     make_pairs,
     msa_golden_record,
+    triplet_golden_pairs,
 )
 
 PER_CLASS = 8
@@ -63,11 +69,11 @@ def golden_pairs(seed=0):
     return idx, [(f"anc{i}", pairs[i][0], f"des{i}", pairs[i][1]) for i in idx]
 
 
-def records_of(batch_align, idx, named, **kw):
+def records_of(batch_align, idx, named, model="mar-mg", **kw):
     """Golden records of `named` through one package's batch_align, with
-    that package's own default AlignmentParams."""
+    that package's own AlignmentParams, defaults but for the model."""
     package = batch_align.__module__.split(".")[0]
-    aln = importlib.import_module(f"{package}.structs").AlignmentParams()
+    aln = importlib.import_module(f"{package}.structs").AlignmentParams(model=model)
     out = io.StringIO()
     batch_align(aln, named, out, **kw)
     rows = [json.loads(line) for line in out.getvalue().splitlines()]
@@ -130,6 +136,23 @@ def test_long_golden_is_the_reference_and_the_port_meets_it(mg94_table, monkeypa
                         golden["seed"], device="cpu") == want
 
 
+def triplet_records(batch_align, seed, **kw):
+    named = triplet_golden_pairs(seed)
+    return records_of(batch_align, range(len(named)), named, model="tri-mg", **kw)
+
+
+def test_triplet_golden_is_the_reference_and_the_port_meets_it(monkeypatch):
+    from coati_tpu.batchrun import batch_align as jax_batch_align
+    from coati_tpu_torch.batchrun import batch_align as torch_batch_align
+
+    monkeypatch.setenv("COATI_TPU_MAX_DEVICES", "1")
+    golden = json.loads(TRIPLET_GOLDEN.read_text())
+    assert len(golden["pairs"]) == 24
+    assert triplet_records(jax_batch_align, golden["seed"]) == golden["pairs"]
+    assert triplet_records(torch_batch_align, golden["seed"],
+                           device="cpu") == golden["pairs"]
+
+
 def msa_record(cli_main, seed, tmp, extra=()):
     """Golden record of one package's msa verb on the golden tree."""
     fasta, newick, ref, _ = make_msa_inputs(*MSA_GOLDEN_SHAPE, seed)
@@ -182,6 +205,14 @@ if __name__ == "__main__":
         "pairs": long_records(jax_align, jax_encode, table, GapParams(), 7),
     }, indent=1) + "\n")
     print(f"wrote {LONG_GOLDEN}")
+
+    TRIPLET_GOLDEN.write_text(json.dumps({
+        "source": "coati_tpu.batchrun.batch_align on XLA:CPU, tri-mg defaults, "
+                  "chip_smoke.triplet_golden_pairs, seed 16",
+        "seed": 16,
+        "pairs": triplet_records(jax_batch_align, 16),
+    }, indent=1) + "\n")
+    print(f"wrote {TRIPLET_GOLDEN}")
 
     idx, named = golden_pairs(0)
     GOLDEN.write_text(json.dumps({

@@ -3,7 +3,8 @@ copied from.
 
 The port imports nothing of the JAX package, so it keeps its own constants,
 structs, utils, version, profiling, io/, models/, align/semiring,
-align/score, rng, format, align/oracle, msa/tree and msa/insertions. Each case sends the same numpy-seeded inputs through both copies
+align/score, rng, format, align/oracle, msa/tree, msa/insertions and
+triplet_hmm. Each case sends the same numpy-seeded inputs through both copies
 and wants equal results: tables and arrays bit-equal, strings and file bytes
 equal. Tolerance: none.
 """
@@ -340,6 +341,15 @@ def case_batchrun_helpers(tmp_path):
     from coati_tpu_torch import batchrun as tb
     from coati_tpu_torch import cli as tcli
 
+    for anc in ("ATGCCC", "atgccc", "ATGTAA", "ATGCC", "ATGTAACCC", "ATGNCC", "AUGCCC"):
+        errs = []
+        for mod in (jb, tb):
+            try:
+                errs.append(mod._validate_triplet_pair(anc))
+            except ValueError as exc:
+                errs.append(str(exc))
+        assert errs[0] == errs[1]
+
     fasta = tmp_path / "pairs.fasta"
     fasta.write_text(">a0\nATGCCC\n>d0\nATGCC\n>a1\nATGAAA\n>d1\nATGAA\n")
     assert jb.read_pairs_fasta(str(fasta)) == tb.read_pairs_fasta(str(fasta))
@@ -538,6 +548,68 @@ def case_msa_insertions():
     assert len(merged[1][2][0]) == 5
 
 
+def case_triplet_hmm():
+    """The triplet host engine: model tables, encoders and their errors, the
+    forward's boundary rows, alignments, the path scorer and the f64 score,
+    under the three models."""
+    jh, th = both("triplet_hmm")
+    js, ts = both("structs")
+    jc, _ = both("constants")
+    rng = np.random.default_rng(31)
+    assert (jh.NEG, jh.MATCH, jh.DELETION, jh.INSERTION) == \
+        (th.NEG, th.MATCH, th.DELETION, th.INSERTION)
+    pairs = [("CTCTGGATAGTG", "CTATAGTG"), ("GCGACTGTT", "AAAAAAAGCGACTGTTCCCCC")]
+    for _ in range(6):
+        anc = _coding_seq(rng, jc.CODONS61, int(rng.integers(1, 14)))
+        pairs.append((anc, "".join(rng.choice(list("ACGTN"), size=int(rng.integers(1, 40))))))
+    for name, kw in (("tri-mg", {}), ("tri-mg", {"sigma": (0.1, 0.2, 0.3, 0.4, 0.5, 0.6)}),
+                     ("tri-ecm", {"br_len": 0.1}), ("dna", {"omega": 0.5})):
+        jm = jh.build_triplet_model(js.AlignmentParams(model=name, **kw))
+        tm = th.build_triplet_model(ts.AlignmentParams(model=name, **kw))
+        for attr in ("logP", "ins_emit", "match_emit", "cnuc"):
+            _same(getattr(jm, attr), getattr(tm, attr), f"{name}.{attr}")
+        assert (jm.codon, jm.ng, jm.gs, jm.go, jm.ge) == (tm.codon, tm.ng, tm.gs, tm.go, tm.ge)
+        if not jm.codon:
+            _same(jm.match_emit_eff, tm.match_emit_eff)
+            _same(jm.del_cost, tm.del_cost)
+        for anc, des in pairs:
+            ja, jd = jh.encode_triplet_pair(jm, anc, des)
+            ta, td = th.encode_triplet_pair(tm, anc, des)
+            _same(ja, ta, "anc codes")
+            _same(jd, td, "des codes")
+            jterm, jb, jdp = jh.triplet_forward(jm, ja, jd, keep_boundaries=True)
+            tterm, tb, tdp = th.triplet_forward(tm, ta, td, keep_boundaries=True)
+            _same(list(jterm), list(tterm), "terminal")
+            _same([list(r) for r in jb], [list(r) for r in tb], "boundaries")
+            _same(jdp.ins_off, tdp.ins_off, "ins_off")
+            want = jh.triplet_align(jm, anc, des)
+            assert th.triplet_align(tm, anc, des) == want
+            assert th.traceback_from_boundaries(tm, anc, des, tterm, tb, tdp) == want
+            assert jh.triplet_path_score(jm, *want[:2]) == th.triplet_path_score(tm, *want[:2])
+            assert jh.triplet_score(jm, anc, des) == th.triplet_score(tm, anc, des)
+            if jm.codon:
+                jp = jdp.block_pieces(0, *jb[0])
+                tp = tdp.block_pieces(0, *tb[0])
+                _same(jp, tp, "block_pieces")
+                _same(list(jdp.collapse_amax(jp)), list(tdp.collapse_amax(tp)))
+    for mod, st in ((jh, js), (th, ts)):
+        model = mod.build_triplet_model(st.AlignmentParams(model="tri-mg"))
+        dna = mod.build_triplet_model(st.AlignmentParams(model="dna"))
+        for bad, match in ((("ATGNCC", "ATG"), "Ambiguous"), (("ATGTAACCC", "ATG"), "Early stop"),
+                           (("ATGCCC", "ATGXCC"), "Invalid nucleotide 'X'"),
+                           (("ATGCCC", "ATG\u00e9"), "Invalid nucleotide")):
+            with pytest.raises(ValueError, match=match):
+                mod.encode_triplet_pair(model, *bad)
+        with pytest.raises(ValueError, match="Ambiguous"):
+            mod.encode_triplet_pair(dna, "ACNT", "ACGT")
+        with pytest.raises(ValueError, match="Mutation model unknown"):
+            mod.build_triplet_model(st.AlignmentParams(model="mar-mg"))
+        with pytest.raises(ValueError, match="equal length"):
+            mod.triplet_path_score(model, "ATG", "AT")
+        with pytest.raises(ValueError, match="not representable"):
+            mod.triplet_path_score(model, "ATG-", "A--C")
+
+
 def _io_case(kind):
     return lambda tmp_path: case_io_roundtrip(kind, tmp_path)
 
@@ -562,6 +634,7 @@ CASES = {
     "align_oracle": case_oracle,
     "msa_tree": case_msa_tree,
     "msa_insertions": case_msa_insertions,
+    "triplet_hmm": case_triplet_hmm,
 }
 
 
