@@ -12,14 +12,20 @@ Phases, each printing lines (any failure raises, exit code non-zero):
              Fill and walk: k=1 and k=3, ragged lengths in one bucket, IUPAC
              codes, stacked table_idx tables, and each of the fill's four
              routes (ring and table each in shared or global memory).
-             Segment kernel, score kernel and segment walk: k=1 and k=3,
+             Segment kernel, score kernel and segment walk: k=1, 3 and 5,
              ragged groups with IUPAC and gap codes, a segment length that
              does not divide the diagonals, each route of the sweep (one
-             block a pair with the ring in shared or in global memory,
-             several blocks a pair); after every segment the ring and raw corners,
-             the backpointers on true cells, the walk state and the ops.
-             Everything must be bit-equal.
-             Forward kernel and sample walk: k=1 and k=3, ragged groups with
+             block a pair with the ring in shared or in global memory;
+             several blocks a pair as bands of columns, band widths that are
+             not a multiple of the threads, groups where some bands hold no
+             cell of a short pair; at the all-to-all barrier, forced, k=1
+             and 3); every launch must take its case's route, the band route
+             with no global ring; after every segment the ring and raw
+             corners, the backpointers on true cells, the walk state and the
+             ops. Everything must be bit-equal. Then a WATCHDOG_NT nt
+             score-only sweep whose last band waits longer than a stalled
+             wait may last, equal to the barrier route.
+             Forward kernel and sample walk: k=1, 3 and 5, ragged groups with
              all 15 IUPAC columns and the gap code, each route of the sweep;
              the corners and every M, D, I of each pair's rectangle within
              FWD_ATOL + FWD_RTOL * |value| of plain (the largest absolute
@@ -47,8 +53,10 @@ Phases, each printing lines (any failure raises, exit code non-zero):
              pairs of tests/data/torch_long_path_golden.json, forced through
              the long route, equal the JAX reference's results; the segment,
              score and segment-walk kernels launched. Then one segment of
-             the four-pair group at its full shape: kernel against plain; and
-             one pair of LONGPAIR_NT nt through the CLI's alignpair: it
+             the four-pair group at its full shape: kernel against plain, on
+             the band route with no global ring; the score kernel over the
+             whole group on the band route and at the barrier, equal, timed
+             in turns; and one pair of LONGPAIR_NT nt through the CLI's alignpair: it
              ungaps to its inputs and its score is the score kernel's.
 6. numbers - warm alignments/s, device times from CUDA events, Gcells/s,
              kernel against plain times and bounds, peak device memory
@@ -208,6 +216,13 @@ FWD_RTOL = 4e-6
 FWD_ATOL = 2e-5
 SCORE_RTOL = 4e-6
 SCORE_ATOL = 1e-4
+# The band route's watchdog: a wait traps after csrc/wavefront_segment.cu
+# kStallCycles SM cycles without a move of the counter it reads, about a
+# second at an H100 SXM's top SM clock. The last of 132 bands of one pair of
+# WATCHDOG_NT nt starts some 635,000 diagonals in, about 2 s of waiting.
+STALL_CYCLES = 2_000_000_000
+TOP_SM_HZ = 1.98e9
+WATCHDOG_NT = 640_000
 KERNELS = {
     "wavefront_fill": {
         "route": "cuda",
@@ -621,32 +636,65 @@ def walk_difference(st_k, ops_k, st_p, ops_p):
                      (ops_k.int() - ops_p.int()).abs().max()))
 
 
-def check_segment_case(dev, name, k, B, la_range, lb_range, T, route, seed):
+def check_segment_case(dev, name, k, B, la_range, lb_range, T, route, seed,
+                       idle=False):
     """One ragged group through the segment kernel, the score kernel and the
     segment walk, and through their plain versions, each chained from its own
     carry: after every segment of pass 1 the ring on the pairs' cells and the
     raw corners, after every segment of pass 2 the backpointers on the true
     cells, the walk state and the ops must be bit-equal; so must the score
     kernel's corners and the last segment's adjusted corners. route is the
-    one the sweep must take: "shared" or "global" (one block a pair, the ring
-    there) or "blocks" (several blocks a pair)."""
+    one every launch must take by the wrappers' own rule: "shared" or
+    "global" (one block a pair, the ring there), "bands" (several blocks a
+    pair, each a band of columns), or "barrier" (several blocks a pair at an
+    all-to-all barrier, forced: the rule sends no such group there). idle:
+    some pair must have no cell in some band."""
     aseq, bseq, la, lb = _random_group(seed, k, la_range, lb_range, B)
-    p = params_from_numpy(alignment_params(gap_len=k).subst_matrix,
-                          alignment_params(gap_len=k).gap, dev)
-    a, b, tla, tlb = (torch.from_numpy(x).to(dev) for x in (aseq, bseq, la, lb))
-    args = (a, b, tla, tlb, p.table, p.gap_consts)
     B, NA = aseq.shape
     NB = bseq.shape[1]
     C = NB + k
     K = max(k, 2)
     Dtot = NA + NB + 2 * k - 1
     n_seg = -(-Dtot // T)
-    blocks, threads = seg_mod.sweep_shape(B, C, dev)
-    took = "blocks" if blocks > 1 else (
-        "shared" if fill_mod.ring_in_shared(C, k) else "global")
-    if took != route or Dtot % T == 0:
-        raise AssertionError(f"segment case {name}: route {took}, meant "
-                             f"{route}; T={T} against Dtot={Dtot}")
+    if Dtot % T == 0:
+        raise AssertionError(f"segment case {name}: T={T} divides Dtot={Dtot}")
+    launch = case_launch(dev, f"segment case {name}", seg_mod.sweep_shape, B, C,
+                         k, route, idle, lb + k)
+    return _segment_case(dev, name, k, B, T, route, launch, aseq, bseq, la, lb,
+                         C, K, n_seg)
+
+
+def case_launch(dev, what, shape, B, C, k, route, idle=False, cols=None,
+                table_len=183 * 15):
+    """The launch a sweep wrapper makes for B pairs of C slots with the
+    launch shape `shape` gives (forced to the barrier for route "barrier"),
+    checked by took_route."""
+    several = "barrier" if route == "barrier" else "bands"
+    launch = seg_mod.sweep_launch(B, C, k, *shape(B, C, dev), table_len,
+                                  several=several)
+    return took_route(what, launch, route, dev, idle, cols)
+
+
+def took_route(what, launch, route, dev, idle=False, cols=None):
+    """The launch takes `route`, and on the band route no global ring or
+    barrier counters; idle: a pair of `cols` slots has no cell in some band."""
+    if launch.route != route:
+        raise AssertionError(f"{what}: route {launch.route}, meant {route}")
+    ring, sync = launch.buffers(dev)[:2]
+    if route == "bands" and (ring is not None or sync is not None):
+        raise AssertionError(f"{what}: the band route allocated a global ring")
+    if idle and not any(int(c) <= launch.plan.bands[-1][0] for c in cols):
+        raise AssertionError(f"{what}: every pair has cells in every band")
+    return launch
+
+
+def _segment_case(dev, name, k, B, T, route, launch, aseq, bseq, la, lb, C, K,
+                  n_seg):
+    p = params_from_numpy(alignment_params(gap_len=k).subst_matrix,
+                          alignment_params(gap_len=k).gap, dev)
+    a, b, tla, tlb = (torch.from_numpy(x).to(dev) for x in (aseq, bseq, la, lb))
+    args = (a, b, tla, tlb, p.table, p.gap_consts)
+    NA, NB = aseq.shape[1], bseq.shape[1]
 
     def bad(what, s):
         raise AssertionError(f"segment case {name}: {what} differ from the "
@@ -659,7 +707,8 @@ def check_segment_case(dev, name, k, B, la_range, lb_range, T, route, seed):
         ckpts_k.append(ck)
         ckpts_p.append(cp)
         adj_k, _, ck = seg_mod.wavefront_segment(*args, ck, s * T, k=k,
-                                                 n_steps=T, want_bp=False)
+                                                 n_steps=T, want_bp=False,
+                                                 launch=launch)
         adj_p, _, cp = seg_mod.segment_plain(*args, cp, s * T, k=k,
                                              n_steps=T, want_bp=False)
         # ring[q] is diagonal (s+1)T - 1 - q: the mask runs down the diagonals
@@ -675,7 +724,7 @@ def check_segment_case(dev, name, k, B, la_range, lb_range, T, route, seed):
         bad("adjusted corners", n_seg - 1)
     err = max(err, float((adj_k - adj_p).abs().max()))
 
-    sc_k = score_mod.wavefront_score(*args, k=k)
+    sc_k = score_mod.wavefront_score(*args, k=k, launch=launch)
     sc_p = score_mod.score_plain(*args, k=k)
     if not (torch.equal(sc_k, sc_p) and torch.equal(sc_k, adj_k)):
         raise AssertionError(f"segment case {name}: score kernel corners differ "
@@ -692,7 +741,8 @@ def check_segment_case(dev, name, k, B, la_range, lb_range, T, route, seed):
     walk_err = 0.0
     for s in range(n_seg - 1, -1, -1):
         _, bp_k, _ = seg_mod.wavefront_segment(
-            *args, ckpts_k[s], s * T, k=k, n_steps=T, want_bp=True, want_carry=False)
+            *args, ckpts_k[s], s * T, k=k, n_steps=T, want_bp=True,
+            want_carry=False, launch=launch)
         _, bp_p, _ = seg_mod.segment_plain(*args, ckpts_p[s], s * T, k=k,
                                            n_steps=T, want_bp=True)
         mask = _rect_cells(tla, tlb, k, s * T, T, C, dev, body=True)
@@ -719,8 +769,10 @@ def check_segment_case(dev, name, k, B, la_range, lb_range, T, route, seed):
     done = (st_k[0] == k - 1) & (st_k[1] == k - 1)
     if not bool(done.all()):
         raise AssertionError(f"segment case {name}: a walk did not reach the origin")
+    width = f", bands of {launch.plan.width}" if launch.plan else ""
     say("kernels", f"{name}: B={B} NA={NA} NB={NB} k={k} T={T} ({n_seg} segments) "
-        f"{blocks} x {threads} threads a pair, route {route}: ring, raw corners, "
+        f"{launch.blocks} x {launch.threads} threads a pair{width}, route {route}: "
+        f"ring, raw corners, "
         f"bp on {n_cells} true cells, "
         f"walk state and {int((ops_k >= 0).sum())} ops bit-equal to plain after "
         f"every segment; score kernel corners bit-equal")
@@ -728,18 +780,78 @@ def check_segment_case(dev, name, k, B, la_range, lb_range, T, route, seed):
 
 
 def phase_segment_kernels(dev):
+    """Every route of the sweep: one block a pair with the ring in shared or
+    global memory; several blocks a pair as bands (k = 1, 3, 5; band widths
+    that are not a multiple of the threads; a ragged group where some bands
+    hold no cell of a short pair) and at the all-to-all barrier (k = 1, 3);
+    then the band route's watchdog on a pair whose last band legitimately
+    waits longer than the stall limit."""
     cases = [
         ("ragged 1.5-2 knt", 1, 3, (1500, 2000), (1500, 2000), 777, "shared", 11),
         ("ragged 1.5-2 knt, k=3", 3, 3, (1500, 2000), (1500, 2000), 777, "shared", 12),
-        ("wide descendants", 1, 3, (300, 600), (6500, 6600), 1000, "blocks", 13),
-        ("wide descendants, k=3", 3, 3, (300, 600), (4900, 5100), 1000, "blocks", 14),
+        ("wide descendants", 1, 3, (150, 300), (4200, 4400), 1000, "bands", 11),
+        ("wide descendants, k=3", 3, 3, (150, 300), (4200, 4400), 1000, "bands", 11),
+        ("wide descendants, k=5", 5, 3, (150, 300), (4200, 4400), 1000, "bands", 11),
+        ("ragged wide group, idle bands", 1, 3, (150, 300), (600, 4400), 1000,
+         "bands", 12, True),
+        ("wide descendants at the barrier", 1, 3, (300, 600), (6500, 6600), 1000,
+         "barrier", 13),
+        ("wide descendants at the barrier, k=3", 3, 3, (300, 600), (4900, 5100),
+         1000, "barrier", 14),
         ("wide group of wide descendants", 1, 67, (150, 300), (6500, 6600), 1000,
          "global", 17),
         ("wide group of wide descendants, k=3", 3, 67, (150, 300), (4900, 5100),
          1000, "global", 18),
     ]
     errs = [check_segment_case(dev, *c) for c in cases]
+    check_band_watchdog(dev)
     return max(e[0] for e in errs), max(e[1] for e in errs)
+
+
+def check_band_watchdog(dev):
+    """A score-only sweep of one WATCHDOG_NT nt pair on the band route, with
+    timer stamps: its last band waits for its first cell for longer than a
+    stalled wait is allowed to last (STALL_CYCLES at the card's top clock),
+    which it survives only because the counters it waits on keep moving. Its
+    corners must equal the barrier route's."""
+    aseq, bseq, la, lb = _random_group(31, 1, (WATCHDOG_NT, WATCHDOG_NT),
+                                       (WATCHDOG_NT, WATCHDOG_NT), 1)
+    p = params_from_numpy(alignment_params().subst_matrix, alignment_params().gap, dev)
+    args = [torch.from_numpy(x).to(dev) for x in (aseq, bseq, la, lb)]
+    args += [p.table, p.gap_consts]
+    C = bseq.shape[1] + 1
+    shape = seg_mod.sweep_shape(1, C, dev)
+    probe = seg_mod.sweep_launch(1, C, 1, *shape, p.table.numel())
+    stamps = torch.full((3 * probe.blocks,), -1, dtype=torch.int64, device=dev)
+    launch = seg_mod.sweep_launch(1, C, 1, *shape, p.table.numel(), stamps=stamps)
+    took_route("watchdog case", launch, "bands", dev)
+    barrier = seg_mod.sweep_launch(1, C, 1, *shape, p.table.numel(),
+                                   several="barrier")
+    t0 = time.perf_counter()
+    got = score_mod.wavefront_score(*args, k=1, launch=launch)
+    torch.cuda.synchronize(dev)
+    bands_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want = score_mod.wavefront_score(*args, k=1, launch=barrier)
+    torch.cuda.synchronize(dev)
+    barrier_s = time.perf_counter() - t0
+    if not torch.equal(got, want):
+        raise AssertionError("watchdog case: the band route's corners differ "
+                             "from the barrier route's")
+    st = stamps.view(-1, 3).cpu()
+    waited = float(st[-1, 1] - st[-1, 0]) / 1e9
+    limit = STALL_CYCLES / TOP_SM_HZ
+    if waited <= 1.5 * limit:
+        raise AssertionError(f"watchdog case: the last band waited {waited:.2f} s "
+                             f"for its first cell, not over 1.5 x the stall limit "
+                             f"{limit:.2f} s: the case proves nothing")
+    say("kernels", f"watchdog: 1 x {WATCHDOG_NT} nt score-only sweep, "
+        f"{launch.blocks} bands of {launch.plan.width} x {launch.threads} threads: "
+        f"the last band waited {waited:.2f} s for its first cell, "
+        f"{waited / limit:.1f} x the stall limit ({STALL_CYCLES:.0e} cycles = "
+        f"{limit:.2f} s at {TOP_SM_HZ / 1e6:.0f} MHz), and did not trap; corners "
+        f"equal the barrier route's ({bands_s:.2f} s on the band route, "
+        f"{barrier_s:.2f} s at the barrier)")
 
 
 def forward_difference(want, got, what):
@@ -806,24 +918,21 @@ def compare_walks(name, ops_k, sc_k, ops_p, sc_p):
     return float(diff.max())
 
 
-def check_forward_case(dev, name, k, B, la_range, lb_range, route, seed):
+def check_forward_case(dev, name, k, B, la_range, lb_range, route, seed,
+                       idle=False):
     """One ragged group through the Forward kernel and its plain version on
     the card: the adjusted corners and every M, D, I of each pair's (la+k) x
     (lb+k) rectangle, margins included, within the tolerance; then the
     sample walk on the kernel's matrices of pair 0 against its plain
-    version. route as check_segment_case's."""
+    version. route and idle as check_segment_case's."""
     aseq, bseq, la, lb = _random_group(seed, k, la_range, lb_range, B)
     aln = alignment_params(gap_len=k)
     p = params_from_numpy(aln.subst_matrix, aln.gap, dev)
     a, b, tla, tlb = (torch.from_numpy(x).to(dev) for x in (aseq, bseq, la, lb))
     args = (a, b, tla, tlb, p.table, p.gap_consts)
-    C = bseq.shape[1] + k
-    blocks, threads = fwd_mod.forward_shape(B, C, dev)
-    took = "blocks" if blocks > 1 else (
-        "shared" if fill_mod.ring_in_shared(C, k) else "global")
-    if took != route:
-        raise AssertionError(f"forward case {name}: route {took}, meant {route}")
-    adj_k, mdi_k = fwd_mod.wavefront_forward(*args, k=k)
+    launch = case_launch(dev, f"forward case {name}", fwd_mod.forward_shape, B,
+                         bseq.shape[1] + k, k, route, idle, lb + k)
+    adj_k, mdi_k = fwd_mod.wavefront_forward(*args, k=k, launch=launch)
     adj_p, mdi_p = fwd_mod.forward_plain(*args, k=k)
     abs_err, rel_err = forward_difference(adj_p, adj_k, f"forward case {name}: corners")
     cells, lowest = 0, 0.0
@@ -835,7 +944,7 @@ def check_forward_case(dev, name, k, B, la_range, lb_range, route, seed):
         cells += (int(la[q]) + k) * (int(lb[q]) + k)
         lowest = min(lowest, float(mdi_k[q][rect][mdi_k[q][rect] > -1e30].min()))
     say("kernels", f"forward {name}: B={B} NA={aseq.shape[1]} NB={bseq.shape[1]} "
-        f"k={k} {blocks} x {threads} threads a pair, route {route}: corners and "
+        f"k={k} {launch.blocks} x {launch.threads} threads a pair, route {route}: corners and "
         f"M, D, I of {cells} cells within {abs_err:.3e} (relative {rel_err:.3e}) "
         f"of plain, values down to {lowest:.1f}")
     # pair 0's matrices, cut to its rectangle, with its adjusted corners
@@ -848,12 +957,20 @@ def check_forward_case(dev, name, k, B, la_range, lb_range, route, seed):
 
 def phase_sample_kernels(dev):
     """The Forward kernel and the sample walk against their plain versions:
-    k = 1 and 3, ragged groups, every route of the sweep."""
+    k = 1, 3 and 5, ragged groups (some with idle bands), every route of the
+    sweep (the barrier forced, at k = 1 and 3)."""
     cases = [
         ("ragged 0.6-1 knt", 1, 5, (600, 999), (600, 999), "shared", 21),
         ("ragged 0.6-1 knt, k=3", 3, 5, (600, 999), (600, 999), "shared", 22),
-        ("wide descendants", 1, 3, (300, 600), (6500, 6600), "blocks", 23),
-        ("wide descendants, k=3", 3, 3, (300, 600), (4900, 5100), "blocks", 24),
+        ("wide descendants", 1, 3, (150, 300), (4200, 4400), "bands", 11),
+        ("wide descendants, k=3", 3, 3, (150, 300), (4200, 4400), "bands", 11),
+        ("wide descendants, k=5", 5, 3, (150, 300), (4200, 4400), "bands", 11),
+        ("ragged wide group, idle bands", 1, 3, (150, 300), (600, 4400), "bands",
+         12, True),
+        ("wide descendants at the barrier", 1, 3, (300, 600), (6500, 6600),
+         "barrier", 23),
+        ("wide descendants at the barrier, k=3", 3, 3, (300, 600), (4900, 5100),
+         "barrier", 24),
         ("wide group of wide descendants", 1, 67, (90, 150), (6500, 6600),
          "global", 25),
         ("wide group of wide descendants, k=3", 3, 67, (90, 150), (4900, 5100),
@@ -1127,9 +1244,12 @@ def _segment_cell(dev, long_pairs, aln):
     for s in range(mid):
         _, _, carry = seg_mod.wavefront_segment(*args, carry, s * T, k=k,
                                                 n_steps=T, want_bp=False)
-    kw = dict(k=k, n_steps=T)
+    launch = case_launch(dev, "segment cell", seg_mod.sweep_shape, B, C, k,
+                         "bands", table_len=p.table.numel())
+    kw = dict(k=k, n_steps=T, launch=launch)
     _, bp_k, out_k = seg_mod.wavefront_segment(*args, carry, d0, want_bp=True, **kw)
-    _, bp_p, out_p = seg_mod.segment_plain(*args, carry, d0, want_bp=True, **kw)
+    _, bp_p, out_p = seg_mod.segment_plain(*args, carry, d0, k=k, n_steps=T,
+                                           want_bp=True)
     mask = _rect_cells(tla, tlb, k, d0, T, C, dev, body=True)
     ring_mask = _rect_cells(tla, tlb, k, d0 + T - max(k, 2), max(k, 2), C, dev).flip(1)
     rk, rp = (o[0].permute(2, 0, 1, 3) for o in (out_k, out_p))
@@ -1159,18 +1279,41 @@ def _segment_cell(dev, long_pairs, aln):
             fn(bp_k, d0, entry.clone(), ops_k, k=k)
         return run
 
+    # the score kernel over the whole group on the band route and at the
+    # barrier, in turns (bands, barrier, barrier, bands): equal, and timed
+    score_launch = {several: case_launch(dev, "segment cell: score kernel",
+                                         seg_mod.sweep_shape, B, C, k, several,
+                                         table_len=p.table.numel())
+                    for several in ("bands", "barrier")}
+
+    def score_at(several):
+        return score_mod.wavefront_score(*args, k=k, launch=score_launch[several])
+
+    score_bands = score_at("bands")
+    if not torch.equal(score_bands, score_at("barrier")):
+        raise AssertionError("segment cell: the score kernel's routes differ")
+    score_ms = {"bands": [], "barrier": []}
+    for several in ("bands", "barrier", "barrier", "bands"):
+        score_ms[several].append(elapsed_ms(lambda: score_at(several), dev, 1))
+    del score_bands
+
     cells = segment_cells(la, lb, k, d0, T)
     carry_bytes = sum(t.numel() * 4 for t in carry)
     in_bytes = sum(t.numel() * t.element_size() for t in args) + carry_bytes
     out = {
-        "shape": f"B={B} NA={NA} NB={NB} k={k} d0={d0} T={T}", "cells": cells,
+        "shape": f"B={B} NA={NA} NB={NB} k={k} d0={d0} T={T}, "
+                 f"{launch.blocks} bands of {launch.plan.width} x "
+                 f"{launch.threads} threads", "cells": cells,
+        "score_group_ms": score_ms,
+        "score_group_bound": bound(sum(t.numel() * t.element_size() for t in args)
+                                   + 12 * B, segment_cells(la, lb, k, 0, Dtot) * CELL_OPS),
         "steps": steps, "err": seg_err, "walk_err": walk_err,
         "segment_bp_ms": elapsed_ms(lambda: seg_mod.wavefront_segment(
             *args, carry, d0, want_bp=True, want_carry=False, **kw), dev, 2),
         "segment_pass1_ms": elapsed_ms(lambda: seg_mod.wavefront_segment(
             *args, carry, d0, want_bp=False, **kw), dev, 2),
         "segment_plain_ms": elapsed_ms(lambda: seg_mod.segment_plain(
-            *args, carry, d0, want_bp=True, **kw), dev, 1),
+            *args, carry, d0, k=k, n_steps=T, want_bp=True), dev, 1),
         "walk_ms": elapsed_ms(walk_again(walk_mod.walk_segment), dev, 5),
         "walk_plain_ms": elapsed_ms(walk_again(walk_segment_plain), dev, 1),
         # with backpointers: inputs and carry in, 1 B a cell and adj out
@@ -1182,7 +1325,9 @@ def _segment_cell(dev, long_pairs, aln):
         f"{out['segment_bp_ms']:.1f} ms with bp, {out['segment_pass1_ms']:.1f} ms "
         f"without, plain {out['segment_plain_ms']:.1f} ms; walk of {steps} steps "
         f"{out['walk_ms']:.3f} ms, plain {out['walk_plain_ms']:.1f} ms; all "
-        f"bit-equal to plain")
+        f"bit-equal to plain; the score kernel over the whole group, in turns: "
+        f"bands {', '.join(f'{t:.1f}' for t in score_ms['bands'])} ms, barrier "
+        f"{', '.join(f'{t:.1f}' for t in score_ms['barrier'])} ms, equal")
     return out
 
 
@@ -1331,6 +1476,12 @@ def phase_numbers(card, main_shape, main, long, score, sample, triplet, errs):
         f"{long['true_cells']} true cells counted once a sweep; peak device memory "
         f"{long['peak'] / 2**20:.1f} MiB")
     cell = long["cell"]
+    sg = cell["score_group_ms"]
+    say("numbers", f"{tag} wavefront_score on the several-blocks route, the "
+        f"{N_LONG}-pair group whole: bands {min(sg['bands']):.3f} ms (runs "
+        f"{', '.join(f'{t:.3f}' for t in sg['bands'])}), barrier "
+        f"{min(sg['barrier']):.3f} ms (runs {', '.join(f'{t:.3f}' for t in sg['barrier'])}); "
+        f"bound {cell['score_group_bound'][0]:.3g} ms by {cell['score_group_bound'][1]}")
     say("numbers", f"{tag} long phase: the same four pairs through the full-bp fill + "
         f"walk {long['full_wall']:.2f} s wall, viterbi_scores_batch over the "
         f"phase's pairs {long['score_wall']:.2f} s wall")
@@ -1499,9 +1650,14 @@ def _sample_cell(dev, a, b, seen):
     steps = int((ops_k >= 0).sum())
     n = ops_k.shape[1]
     in_bytes = sum(t.numel() * t.element_size() for t in fargs)
+    launch = case_launch(dev, "sample cell: Forward", fwd_mod.forward_shape,
+                         fargs[0].shape[0], fargs[1].shape[1] + k, k, "bands",
+                         table_len=fargs[4].numel())
+    forward_ms = elapsed_ms(
+        lambda: fwd_mod.wavefront_forward(*fargs, k=k, launch=launch), dev, 3)
     res = {
         "forward_err": abs_err, "walk_err": walk_err,
-        "forward_ms": elapsed_ms(lambda: fwd_mod.wavefront_forward(*fargs, k=k), dev, 3),
+        "forward_ms": forward_ms,
         "forward_plain_ms": forward_plain_ms,
         "walk_ms": elapsed_ms(lambda: sample_mod.sample_walk(*wargs, k=k), dev, 5),
         "walk_plain_ms": walk_plain_ms,
@@ -1515,6 +1671,7 @@ def _sample_cell(dev, a, b, seen):
     say("sample", f"cell {len(enc_a)} x {len(enc_b)} nt, {n} samples: the largest "
         f"adjusted corner {got} against native.forward_score {want} "
         f"({native_s:.2f} s on the host); Forward kernel {res['forward_ms']:.1f} ms "
+        f"at {launch.blocks} bands of {launch.plan.width} x {launch.threads} threads "
         f"({cells / res['forward_ms'] / 1e6:.2f} Gcells/s), plain "
         f"{res['forward_plain_ms']:.1f} ms, {cells} cells within {abs_err:.3e} "
         f"(relative {rel_err:.3e}); walk of {steps} steps {res['walk_ms']:.3f} ms, "

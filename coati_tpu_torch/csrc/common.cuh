@@ -66,8 +66,10 @@ __device__ __forceinline__ float ring_load(const float* p) {
 }
 
 // Cell (i, j) of one pair's matrix, on diagonal d = i + j, from the ring
-// planes of diagonals d-2 (r2) and d-k (rk), each M, D, I planes of C slots.
-// a and b are the pair's sequences, tab the [rows, 15] table. Writes M, D, I
+// planes of diagonals d-2 (r2) and d-k (rk), each M, D, I planes of S slots
+// with column j at slot j - off (a whole diagonal: S = C, off = 0; one band
+// of columns [j0, j1) and its k halo columns: S = k + j1 - j0, off = j0 - k).
+// i and j are the pair's global indices whatever the planes hold. a and b are the pair's sequences, tab the [rows, 15] table. Writes M, D, I
 // and returns the packed backpointer byte. Every add is the reference's, in
 // its order (coati_tpu/align/wavefront.py:182-195); the semiring's sums
 // (max, or with kLog lse) nest as plus2(plus2(a, b), c); the backpointers use the comparands of :218-220;
@@ -78,20 +80,21 @@ __device__ __forceinline__ float ring_load(const float* p) {
 // SMs write. The backpointer byte is of use only in the tropical semiring.
 template <bool kCg = false, bool kLog = false>
 __device__ __forceinline__ uint8_t cell_update(
-    int i, int j, int k, int C, const float* r2, const float* rk,
+    int i, int j, int k, int S, int off, const float* r2, const float* rk,
     const int32_t* __restrict__ a, const int32_t* __restrict__ b,
     const float* tab, const Gap& g, float& M, float& D, float& I) {
   const bool diag = i >= 1 && j >= 1;  // (i-1, j-1)
   const bool up = i >= k;              // (i-k, j)
   const bool left = j >= k;            // (i, j-k)
-  const float p2M = diag ? ring_load<kCg>(r2 + j - 1) : kLowest;
-  const float p2D = diag ? ring_load<kCg>(r2 + C + j - 1) : kLowest;
-  const float p2I = diag ? ring_load<kCg>(r2 + 2 * C + j - 1) : kLowest;
-  const float pkM = up ? ring_load<kCg>(rk + j) : kLowest;
-  const float pkD = up ? ring_load<kCg>(rk + C + j) : kLowest;
-  const float pkI = up ? ring_load<kCg>(rk + 2 * C + j) : kLowest;
-  const float pkMs = left ? ring_load<kCg>(rk + j - k) : kLowest;
-  const float pkIs = left ? ring_load<kCg>(rk + 2 * C + j - k) : kLowest;
+  const int c = j - off;               // j's slot in the planes
+  const float p2M = diag ? ring_load<kCg>(r2 + c - 1) : kLowest;
+  const float p2D = diag ? ring_load<kCg>(r2 + S + c - 1) : kLowest;
+  const float p2I = diag ? ring_load<kCg>(r2 + 2 * S + c - 1) : kLowest;
+  const float pkM = up ? ring_load<kCg>(rk + c) : kLowest;
+  const float pkD = up ? ring_load<kCg>(rk + S + c) : kLowest;
+  const float pkI = up ? ring_load<kCg>(rk + 2 * S + c) : kLowest;
+  const float pkMs = left ? ring_load<kCg>(rk + c - k) : kLowest;
+  const float pkIs = left ? ring_load<kCg>(rk + 2 * S + c - k) : kLowest;
 
   // partial sums shared by the recurrence and the backpointer comparands
   const float m2m0 = __fadd_rn(__fadd_rn(p2M, g.ng), g.ng);

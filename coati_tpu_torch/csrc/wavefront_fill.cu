@@ -76,7 +76,7 @@ __global__ void wavefront_fill_kernel(
       const int i = d - j;
       float M, D, I;
       const uint8_t code =
-          coati::cell_update(i, j, k, C, r2, rk, a, b, tab, g, M, D, I);
+          coati::cell_update(i, j, k, C, 0, r2, rk, a, b, tab, g, M, D, I);
       cur[j] = M;
       cur[C + j] = D;
       cur[2 * C + j] = I;

@@ -52,17 +52,19 @@ SIGNATURES = {
     # bp cM cD cI lens_a lens_b ops score, B Dtot C k max_steps, stream
     "coati_traceback_walk": [_P] * 8 + [_I] * 5 + [_P],
     # aseq bseq lens_a lens_b table gap ring_in corners_in ring_out corners_out
-    # adj ring_scratch bp sync, B NA NB k d0 T ring_shared want_bp
-    # blocks_per_pair threads, stream
-    "coati_wavefront_segment": [_P] * 14 + [_I] * 10 + [_P],
-    # aseq bseq lens_a lens_b table gap adj ring_scratch sync,
-    # B NA NB k ring_shared blocks_per_pair threads, stream
-    "coati_wavefront_score": [_P] * 9 + [_I] * 7 + [_P],
+    # adj ring_scratch bp sync halo next stamps, B NA NB k d0 T route want_bp
+    # blocks_per_pair band_width halo_slots table_len threads, stream
+    "coati_wavefront_segment": [_P] * 17 + [_I] * 13 + [_P],
+    # aseq bseq lens_a lens_b table gap adj ring_scratch sync halo next stamps,
+    # B NA NB k route blocks_per_pair band_width halo_slots table_len threads,
+    # stream
+    "coati_wavefront_score": [_P] * 12 + [_I] * 10 + [_P],
     # bp adj lens_a lens_b score state ops, B T C k d0 max_steps, stream
     "coati_traceback_walk_segment": [_P] * 7 + [_I] * 6 + [_P],
-    # aseq bseq lens_a lens_b table gap adj ring_scratch sync mdi,
-    # B NA NB k ring_shared blocks_per_pair threads, stream
-    "coati_wavefront_forward": [_P] * 10 + [_I] * 7 + [_P],
+    # aseq bseq lens_a lens_b table gap adj ring_scratch sync halo next stamps
+    # mdi, B NA NB k route blocks_per_pair band_width halo_slots table_len
+    # threads, stream
+    "coati_wavefront_forward": [_P] * 13 + [_I] * 10 + [_P],
     # mdi enc_a enc_b table gap uniforms ops scores, R Cc k N n_steps, stream
     "coati_sample_walk": [_P] * 8 + [_I] * 5 + [_P],
     # anc_cods des ins_off steps lens_m logP64 match_emit gc carry_in grid

@@ -15,7 +15,12 @@ import torch
 from coati_tpu_torch.align.wavefront import wavefront_plain
 from coati_tpu_torch.kernels import _build
 from coati_tpu_torch.kernels.wavefront_fill import _check
-from coati_tpu_torch.kernels.wavefront_segment import sweep_scratch, sweep_shape
+from coati_tpu_torch.kernels.wavefront_segment import (
+    SweepLaunch,
+    ptr,
+    sweep_launch,
+    sweep_shape,
+)
 
 LAUNCHES = 0  # kernel launches made by wavefront_score
 
@@ -27,10 +32,12 @@ def score_plain(aseq, bseq, lens_a, lens_b, table, gap_consts, *, k: int):
     return torch.stack(adj)
 
 
-def wavefront_score(aseq, bseq, lens_a, lens_b, table, gap_consts, *, k: int):
+def wavefront_score(aseq, bseq, lens_a, lens_b, table, gap_consts, *, k: int,
+                    launch: SweepLaunch | None = None):
     """Score-only Viterbi: the terminal-adjusted corners (cM, cD, cI) as one
-    [3, B] f32 tensor; a pair's score is their maximum. Preconditions as
-    wavefront_fill's."""
+    [3, B] f32 tensor; a pair's score is their maximum. launch: how to
+    launch the kernel (wavefront_segment.sweep_launch), by default
+    sweep_shape's. Preconditions as wavefront_fill's."""
     global LAUNCHES
     _check(aseq, bseq, lens_a, lens_b, table, gap_consts)
     dev = aseq.device
@@ -42,17 +49,18 @@ def wavefront_score(aseq, bseq, lens_a, lens_b, table, gap_consts, *, k: int):
     NB = bseq.shape[1]
     C = NB + k
     adj = torch.empty((3, B), dtype=torch.float32, device=dev)
-    blocks, threads = sweep_shape(B, C, dev)
-    ring_shared, scratch, sync = sweep_scratch(B, C, k, blocks, dev)
+    if launch is None:
+        launch = sweep_launch(B, C, k, *sweep_shape(B, C, dev), table.numel())
+    launch.check(B, C, k, table.numel())
+    scratch = launch.buffers(dev)  # held until the kernel is launched
     lib = _build.load()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.coati_wavefront_score(
             aseq.data_ptr(), bseq.data_ptr(), lens_a.data_ptr(),
             lens_b.data_ptr(), table.data_ptr(), gap_consts.data_ptr(),
-            adj.data_ptr(), None if scratch is None else scratch.data_ptr(),
-            None if sync is None else sync.data_ptr(),
-            B, NA, NB, k, int(ring_shared), blocks, threads, stream,
+            adj.data_ptr(), *map(ptr, scratch), B, NA, NB, k, *launch.ints(),
+            launch.threads, stream,
         )
     _build.check(rc, "wavefront_score")
     LAUNCHES += 1

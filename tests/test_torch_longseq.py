@@ -390,26 +390,39 @@ def test_thresholds_come_from_bytes():
 
 def test_sweep_shape_spreads_long_pairs_over_the_sms(monkeypatch):
     """Several blocks a pair only above MULTI_BLOCK_SLOTS, never more blocks
-    than SMs in all (the launch is cooperative), never more than a full
-    diagonal has cells for."""
+    than SMs in all (the launch is cooperative), bands no narrower than
+    BAND_MIN_COLUMNS, 512 threads while a band holds up to 1,024 columns;
+    the launch takes the band route where it can, with no global ring."""
     monkeypatch.setattr(torch.cuda, "get_device_properties",
                         lambda dev: types.SimpleNamespace(multi_processor_count=132))
     shape = functools.partial(seg_mod.sweep_shape, device="cuda")
+    assert seg_mod.BAND_MIN_COLUMNS == 243
     assert shape(2048, 1057) == (1, 256)
     assert shape(3, seg_mod.MULTI_BLOCK_SLOTS) == (1, 1024)
-    assert shape(1, 8001) == (8, 1024)
-    assert shape(4, 32001) == (32, 1024)
-    assert shape(1, 32001) == (32, 1024)
+    assert shape(1, 8001) == (33, 512)
+    assert shape(4, 32001) == (33, 512)
+    assert shape(1, 32001) == (132, 512)
     assert shape(1, 160003) == (132, 1024)
     assert shape(100, 32001) == (1, 1024)
     assert shape(500, 32001) == (1, 1024)
     for B in (1, 2, 5, 33, 67, 131, 132, 133):
         blocks, threads = shape(B, 50_000)
         assert blocks == 1 or B * blocks <= 132
-    assert seg_mod.sweep_scratch(2, 1057, 1, 1, "cpu")[0] is True
-    ring_shared, scratch, sync = seg_mod.sweep_scratch(2, 1057, 1, 4, "cpu")
-    assert not ring_shared and tuple(scratch.shape) == (2, 3, 3, 1057)
-    assert sync.tolist() == [0, 0]
+    one = seg_mod.sweep_launch(2, 1057, 1, 1, 256)
+    assert one.route == "shared" and one.buffers("cpu") == (None,) * 5
+    wide = seg_mod.sweep_launch(2, 7001, 1, 1, 1024)
+    ring, *rest = wide.buffers("cpu")
+    assert wide.route == "global" and tuple(ring.shape) == (2, 3, 3, 7001)
+    assert rest == [None] * 4
+    bands = seg_mod.sweep_launch(4, 32001, 1, *shape(4, 32001))
+    ring, sync, _, nxt, _ = bands.buffers("cpu")
+    assert bands.route == "bands" and ring is None and sync is None
+    assert bands.blocks == len(bands.plan.bands) == 33 and bands.plan.width == 970
+    assert nxt.tolist() == [[0] * 33] * 4
+    # a group too wide for a band's ring in shared memory stays at the barrier
+    barrier = seg_mod.sweep_launch(33, 32001, 1, *shape(33, 32001))
+    assert barrier.route == "barrier" and barrier.blocks == 4
+    assert tuple(barrier.buffers("cpu")[1].shape) == (33,)
 
 
 @pytest.mark.parametrize("k", [1, 3])

@@ -449,8 +449,9 @@ def test_marg_sample_routes(tmp_path, monkeypatch):
 
 def test_forward_shape_takes_blocks_of_512_threads(monkeypatch):
     """One block a pair up to MULTI_BLOCK_SLOTS slots; above, blocks of
-    FORWARD_BLOCK_THREADS threads, as many as a diagonal has cells for and
-    the card has SMs for the group; the Viterbi sweeps keep 1,024."""
+    FORWARD_BLOCK_THREADS threads in bands of at least FORWARD_MIN_COLUMNS,
+    as many as the card has SMs for the group, on the band route wherever
+    band_plan takes the launch, as the Viterbi sweeps."""
     import types
 
     from coati_tpu_torch.kernels import wavefront_segment as seg_mod
@@ -458,13 +459,18 @@ def test_forward_shape_takes_blocks_of_512_threads(monkeypatch):
     monkeypatch.setattr(torch.cuda, "get_device_properties",
                         lambda dev: types.SimpleNamespace(multi_processor_count=132))
     assert fwd_mod.FORWARD_BLOCK_THREADS == 512
+    assert fwd_mod.FORWARD_MIN_COLUMNS == 64
     assert fwd_mod.forward_shape(1, 1000, "cuda") == (1, 256)
     assert fwd_mod.forward_shape(1, seg_mod.MULTI_BLOCK_SLOTS, "cuda") == (1, 1024)
-    assert fwd_mod.forward_shape(1, 10_000, "cuda") == (20, 512)
-    assert fwd_mod.forward_shape(1, 29_398, "cuda") == (58, 512)
+    assert fwd_mod.forward_shape(1, 10_000, "cuda") == (132, 512)
+    assert fwd_mod.forward_shape(1, 29_398, "cuda") == (132, 512)
     assert fwd_mod.forward_shape(1, 160_003, "cuda") == (132, 512)
-    assert fwd_mod.forward_shape(3, 6_565, "cuda") == (13, 512)
+    assert fwd_mod.forward_shape(3, 6_565, "cuda") == (44, 512)
     assert fwd_mod.forward_shape(67, 6_600, "cuda") == (1, 1024)
     assert fwd_mod.forward_shape(500, 6_600, "cuda") == (1, 1024)
-    assert seg_mod.sweep_shape(1, 10_000, "cuda") == (10, 1024)
+    assert seg_mod.sweep_shape(1, 10_000, "cuda") == (42, 512)
+    launch = seg_mod.sweep_launch(1, 29_398, 1, *fwd_mod.forward_shape(1, 29_398, "cuda"))
+    assert launch.route == "bands" and launch.plan.cells_a_thread == 1
+    launch = seg_mod.sweep_launch(8, 29_398, 1, *fwd_mod.forward_shape(8, 29_398, "cuda"))
+    assert launch.route == "bands" and launch.plan.cells_a_thread == 4
     assert fwd_mod.forward_bytes(29_397, 29_397, 1) == 12 * 29_398 ** 2
