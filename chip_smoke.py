@@ -9,9 +9,15 @@ Phases, each printing lines (any failure raises, exit code non-zero):
              name and power limit, the torch and CUDA versions.
 2. build   - nvcc-builds the kernels from coati_tpu_torch/csrc.
 3. kernels - every kernel against its plain PyTorch version on the card.
-             Fill and walk: k=1 and k=3, ragged lengths in one bucket, IUPAC
-             codes, stacked table_idx tables, and each of the fill's four
-             routes (ring and table each in shared or global memory).
+             Fill (strips, row layout) and whole-stack walk: the B=64 999 nt
+             bucket, k=3 and k=5 ragged, IUPAC codes, stacked table_idx
+             tables (G=3 in shared memory, G=24 read from device memory),
+             pairs over 4,096 slots spread over several blocks (C~6,000,
+             k=1 and k=3), stripe passes through the edge buffer in one
+             block and over several (forced shapes); corners, bp on every
+             true cell, ops and scores bit-equal; and a gap length above the
+             fill kernel's (k=9), which fused_align_ops must send through the
+             sweep and the segment walk, equal to the plain fill and walk.
              Segment kernel, score kernel and segment walk: k=1, 3 and 5,
              ragged groups with IUPAC and gap codes, a segment length that
              does not divide the diagonals, each route of the sweep (one
@@ -58,6 +64,9 @@ Phases, each printing lines (any failure raises, exit code non-zero):
              whole group on the band route and at the barrier, equal, timed
              in turns; and one pair of LONGPAIR_NT nt through the CLI's alignpair: it
              ungaps to its inputs and its score is the score kernel's.
+   lonepair - one LONE_NT nt pair through the CLI's alignpair and through
+             batch_align: the fill and whole-stack walk launched once each
+             (spread over blocks), equal to the long path's alignment.
 6. numbers - warm alignments/s, device times from CUDA events, Gcells/s,
              kernel against plain times and bounds, peak device memory
              (printed last, after phases 7 and 8).
@@ -123,6 +132,7 @@ from coati_tpu_torch.align import engine, longseq  # noqa: E402
 from coati_tpu_torch.align.sample_device import sample_paths_plain  # noqa: E402
 from coati_tpu_torch.align.wavefront import (  # noqa: E402
     traceback_plain,
+    traceback_rows_plain,
     walk_segment_plain,
     wavefront_plain,
 )
@@ -149,6 +159,9 @@ LONG_MIX = [(29397, 0.5), (31998, 0.5)]
 N_LONG = 4
 N_LONG_PHASE_MIX = 1_000  # pairs of LENGTH_MIX beside the long ones
 LONGPAIR_NT = 160_002  # the size of the reference's longest shipped example
+# a lone mid-size pair: over 4,096 slots, its bp stack under the long path's
+# budget, so the fill kernel spreads it over blocks
+LONE_NT = 16_000
 # the JAX reference's results for a few ~3 knt pairs forced through the long
 # route, written and checked by tests/test_torch_golden.py
 LONG_GOLDEN = ROOT / "tests" / "data" / "torch_long_path_golden.json"
@@ -407,8 +420,8 @@ def _segment_plain(*args, want_carry=True, **kw):
 
 
 PLAIN = {
-    "wavefront_fill": wavefront_plain,
-    "traceback_walk": traceback_plain,
+    "wavefront_fill": fill_mod.fill_rows_plain,
+    "traceback_walk": traceback_rows_plain,
     "wavefront_segment": _segment_plain,
     "wavefront_score": score_mod.score_plain,
     "traceback_walk_segment": walk_segment_plain,
@@ -522,33 +535,37 @@ def _random_case(seed, k, B, na, nb, n_codes=4, G=1):
     return aseq, bseq, la.astype(np.int32), lb.astype(np.int32), tables
 
 
-def check_case(dev, name, k, B, na, nb, route, n_codes=4, G=1, seed=0,
-               timing=None):
-    """One batch through both kernels and both plain versions; route is the
-    (ring, table) placement the fill must take; timing None, "kernels" or
-    "all" (kernels and plain versions)."""
+def check_case(dev, name, k, B, na, nb, expect, n_codes=4, G=1, seed=0,
+               timing=None, launch=None):
+    """One batch through the fill and walk kernels and their plain versions
+    (fill_rows_plain, traceback_rows_plain): corners, bp on every true cell,
+    ops and scores bit-equal. expect(launch) must hold for the launch the
+    fill takes (fill_shape's, or `launch` (W, warps, pairs, blocks) forced);
+    timing None, "kernels" or "all" (kernels and plain versions)."""
     aseq, bseq, la, lb, tables = _random_case(seed, k, B, na, nb, n_codes, G)
     p = params_from_numpy(tables, alignment_params(gap_len=k).gap, dev)
     a, b, tla, tlb = (torch.from_numpy(x).to(dev) for x in (aseq, bseq, la, lb))
     steps = int((la + lb).max())
     C = bseq.shape[1] + k
-    took = tuple("shared" if on else "global" for on in (
-        fill_mod.ring_in_shared(C, k),
-        fill_mod.table_in_shared(C, k, p.table.numel())))
-    if took != route:
-        raise AssertionError(f"kernel case {name}: ring/table in {took}, "
-                             f"meant to be in {route}")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    if launch is None:
+        launch = fill_mod.fill_shape(B, C, k, p.table.numel(), sms)
+    else:
+        launch = fill_mod.fill_launch(B, C, k, *launch, table_len=p.table.numel())
+    if not expect(launch):
+        raise AssertionError(f"kernel case {name}: the fill takes {launch}, "
+                             f"not the route the case is for")
+    args = (a, b, tla, tlb, p.table, p.gap_consts)
 
-    ck, bpk = fill_mod.wavefront_fill(a, b, tla, tlb, p.table, p.gap_consts, k=k)
-    cp, bpp = wavefront_plain(a, b, tla, tlb, p.table, p.gap_consts, k=k)
+    ck, bpk = fill_mod.wavefront_fill(*args, k=k, launch=launch)
+    cp, bpp = fill_mod.fill_rows_plain(*args, k=k)
     opk, sk = walk_mod.traceback_walk(bpk, ck, tla, tlb, k=k, max_steps=steps)
-    opp, sp = traceback_plain(bpp, cp, tla, tlb, k=k, max_steps=steps)
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
+    opp, sp = traceback_rows_plain(bpp, cp, tla, tlb, k=k, max_steps=steps)
+    torch.cuda.synchronize(dev)
 
     fill_err = max(float((x - y).abs().max()) for x, y in zip(ck, cp))
     walk_err = float((sk - sp).abs().max())
-    mask = _rect_cells(tla, tlb, k, 0, bpk.shape[1], C, dev, body=True)
+    mask = fill_mod.true_cells(tla, tlb, k, *bpk.shape[1:])
     bad = []
     if not all(torch.equal(x, y) for x, y in zip(ck, cp)):
         bad.append("corners")
@@ -563,34 +580,66 @@ def check_case(dev, name, k, B, na, nb, route, n_codes=4, G=1, seed=0,
     if bad:
         raise AssertionError(f"kernel case {name}: {', '.join(bad)} differ "
                              f"from the plain version")
-    out = {"fill_err": fill_err, "walk_err": walk_err}
+    out = {"fill_err": fill_err, "walk_err": walk_err, "launch": launch}
     times = ""
     if timing:
         out["fill_ms"] = elapsed_ms(lambda: fill_mod.wavefront_fill(
-            a, b, tla, tlb, p.table, p.gap_consts, k=k), dev, 10)
+            *args, k=k, launch=launch), dev, 10)
         out["walk_ms"] = elapsed_ms(lambda: walk_mod.traceback_walk(
             bpk, ck, tla, tlb, k=k, max_steps=steps), dev, 10)
         times = f"; fill {out['fill_ms']:.3f} ms, walk {out['walk_ms']:.3f} ms"
-        cells = segment_cells(la, lb, k, 0, bpk.shape[1])
-        in_bytes = sum(t.numel() * t.element_size()
-                       for t in (a, b, tla, tlb, p.table, p.gap_consts))
+        cells = segment_cells(la, lb, k, 0, aseq.shape[1] + bseq.shape[1] + 2 * k - 1)
+        in_bytes = sum(t.numel() * t.element_size() for t in args)
         # inputs in; 1 B a cell of the pairs' matrices and the corners out
         out["fill_bound"] = bound(in_bytes + cells + 12 * B, cells * CELL_OPS_BP)
         # 1 B a step, corners and lens in; the ops buffer and scores out
         n_steps = int((opk >= 0).sum())
         out["walk_bound"] = bound(n_steps + 20 * B + opk.numel() + 4 * B, 0)
     if timing == "all":
-        out["fill_plain_ms"] = elapsed_ms(lambda: wavefront_plain(
-            a, b, tla, tlb, p.table, p.gap_consts, k=k), dev, 2)
-        out["walk_plain_ms"] = elapsed_ms(lambda: traceback_plain(
+        out["fill_plain_ms"] = elapsed_ms(lambda: fill_mod.fill_rows_plain(
+            *args, k=k), dev, 2)
+        out["walk_plain_ms"] = elapsed_ms(lambda: traceback_rows_plain(
             bpk, ck, tla, tlb, k=k, max_steps=steps), dev, 2)
         times += (f" (plain: fill {out['fill_plain_ms']:.1f} ms, "
                   f"walk {out['walk_plain_ms']:.1f} ms)")
     say("kernels", f"{name}: B={B} NA={aseq.shape[1]} NB={bseq.shape[1]} k={k} "
-        f"G={G} ring/table in {route[0]}/{route[1]} memory: corners, bp on "
-        f"{int(mask.sum())} true cells, {int((opk >= 0).sum())} ops and scores "
-        f"bit-equal to plain{times}")
+        f"G={G}, strips of {launch.W} x {launch.warps} warps x {launch.pairs} "
+        f"pairs x {launch.blocks} blocks, {launch.passes} passes, table in "
+        f"{'shared' if launch.table_shared else 'device'} memory: corners, bp "
+        f"on {int(mask.sum())} true cells, {int((opk >= 0).sum())} ops and "
+        f"scores bit-equal to plain{times}")
     return out
+
+
+def check_sweep_route(dev, k, B, na, nb, seed):
+    """A gap length above the fill kernel's (fill_mod.MAX_K) goes through
+    engine.fused_align_ops to the sweep over every diagonal and the segment
+    walk: those kernels launch, the fill and whole-stack walk do not, and
+    the ops and scores equal the plain fill and walk's (diagonal layout)."""
+    aseq, bseq, la, lb, tables = _random_case(seed, k, B, na, nb, n_codes=16)
+    p = params_from_numpy(tables, alignment_params(gap_len=k).gap, dev)
+    args = [torch.from_numpy(x).to(dev) for x in (aseq, bseq, la, lb)]
+    args += [p.table, p.gap_consts]
+    steps = int((la + lb).max())
+    reset_launch_counts()
+    ops, score = engine.fused_align_ops(*args, k=k, max_steps=steps)
+    torch.cuda.synchronize(dev)
+    counts = launch_counts()
+    corners, bp = wavefront_plain(*args, k=k)
+    want_ops, want_score = traceback_plain(bp, corners, args[2], args[3], k=k,
+                                           max_steps=steps)
+    took = {n: counts[n] for n in ("wavefront_fill", "traceback_walk",
+                                   "wavefront_segment", "traceback_walk_segment")}
+    if took != {"wavefront_fill": 0, "traceback_walk": 0, "wavefront_segment": 1,
+                "traceback_walk_segment": 1}:
+        raise AssertionError(f"k={k}: fused_align_ops launched {took}, not the sweep")
+    if not (torch.equal(ops, want_ops) and torch.equal(score, want_score)):
+        raise AssertionError(f"k={k}: the sweep route's ops or scores differ "
+                             f"from plain")
+    say("kernels", f"k={k} (above the fill kernel's {fill_mod.MAX_K}), B={B}: "
+        f"fused_align_ops took the sweep ({took}); ops and scores bit-equal to "
+        f"the plain fill and walk")
+    return float((score - want_score).abs().max())
 
 
 def _random_group(seed, k, la_range, lb_range, B):
@@ -981,29 +1030,48 @@ def phase_sample_kernels(dev):
 
 
 def phase_kernels(dev):
-    shared, glob = "shared", "global"
+    def one_block(launch):
+        return launch.blocks == 1 and launch.passes == 1
+
+    def spread(launch):
+        return launch.blocks > 1
+
+    def table_in_device(launch):
+        return not launch.table_shared
+
     main_shape = check_case(dev, "main-path shape, 999 nt", 1, 64, (600, 999),
-                            (600, 999), (shared, shared), seed=1, timing="all")
+                            (600, 999), one_block, seed=1, timing="all")
     # the same shape with a table too large for shared memory (24 x 183 x 15
-    # f32 = 263,520 B): the global-table route, timed against the one above
+    # f32 = 263,520 B): read from device memory, timed against the one above
     main_global = check_case(dev, "main-path shape, stacked table_idx G=24", 1,
-                             64, (600, 999), (600, 999), (shared, glob), G=24,
+                             64, (600, 999), (600, 999), table_in_device, G=24,
                              seed=1, timing="kernels")
     cases = [main_shape, main_global,
-             check_case(dev, "ring near the shared-memory limit", 1, 2,
-                        (300, 300), (6240, 6240), (shared, glob), seed=6),
-             check_case(dev, "C~6000 pair", 3, 1, (3000, 3000), (5997, 5997),
-                        (glob, shared), seed=5),
+             check_case(dev, "pairs over 4,096 slots, several blocks a pair", 1,
+                        2, (300, 300), (6240, 6240), spread, seed=6),
              check_case(dev, "C~6000 pairs, stacked table_idx G=24", 3, 2,
-                        (1500, 3000), (5997, 5997), (glob, glob), G=24, seed=7),
+                        (1500, 3000), (5997, 5997),
+                        lambda ln: spread(ln) and table_in_device(ln), G=24, seed=7),
              check_case(dev, "k=3 ragged", 3, 32, (150, 480), (150, 480),
-                        (shared, shared), seed=2),
+                        one_block, seed=2),
+             check_case(dev, "k=5 ragged, IUPAC + gap codes", 5, 16, (150, 480),
+                        (150, 480), one_block, n_codes=16, seed=8),
              check_case(dev, "IUPAC + gap codes", 1, 32, (96, 300), (96, 300),
-                        (shared, shared), n_codes=16, seed=3),
+                        one_block, n_codes=16, seed=3),
              check_case(dev, "stacked table_idx G=3", 1, 30, (96, 300),
-                        (96, 300), (shared, shared), G=3, seed=4)]
+                        (96, 300), one_block, G=3, seed=4),
+             check_case(dev, "stripe passes, two pairs a block (forced)", 3, 9,
+                        (300, 600), (300, 600), lambda ln: ln.passes > 1,
+                        seed=9, launch=(4, 1, 2, 1)),
+             check_case(dev, "passes over several blocks (forced)", 1, 2,
+                        (300, 300), (2000, 2000),
+                        lambda ln: ln.passes > 1 and spread(ln), seed=10,
+                        launch=(8, 2, 1, 3))]
     main_shape["fill_global_table_ms"] = main_global["fill_ms"]
-    return main_shape, max(c["fill_err"] for c in cases), max(c["walk_err"] for c in cases)
+    sweep_err = check_sweep_route(dev, fill_mod.MAX_K + 1, 6, (270, 540),
+                                  (180, 360), seed=11)
+    return (main_shape, max(c["fill_err"] for c in cases) + sweep_err,
+            max(c["walk_err"] for c in cases))
 
 
 # --- phase 4 ----------------------------------------------------------------
@@ -1811,6 +1879,67 @@ def run_longpair(dev, card, nt):
         f"pass 1; peak device memory {peak / 2**20:.1f} MiB; ungaps to its "
         f"inputs; score {score} equals the score kernel's ({score_wall:.2f} s wall)")
 
+def run_lonepair(dev, card, nt=LONE_NT):
+    """One pair of nt nt through the CLI's alignpair and through batch_align:
+    the fill kernel spread over several blocks and the whole-stack walk, one
+    launch each; the alignment equals the long path's for the same pair
+    (the segmented route, held to plain in phase 5)."""
+    aln = alignment_params()
+    k = int(aln.gap.len)
+    for seed in range(4, 40):
+        (a, b), = make_pairs(1, np.random.default_rng(seed), length_mix=[(nt, 1.0)])
+        d = SeqData(names=["a", "b"], seqs=[a, b])
+        utils.trim_end_stops(d)
+        if not any(d.stops):
+            break
+    C = -(-len(b) // 96) * 96 + k
+    if longseq.is_long_pair(len(a), len(b), k) or C <= fill_mod.MULTI_BLOCK_SLOTS:
+        raise AssertionError(f"a {len(a)} x {len(b)} nt pair is not a lone mid-size pair")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    launch = fill_mod.fill_shape(1, C, k, 183 * 15, sms)
+    with tempfile.TemporaryDirectory() as tmp:
+        src = Path(tmp) / "pair.fasta"
+        out = Path(tmp) / "out.json"
+        src.write_text(f">anc\n{a}\n>des\n{b}\n")
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        with KernelTimer(dev) as timer:
+            rc = cli.main(["alignpair", str(src), "-o", str(out)])
+        wall = time.perf_counter() - t0
+        counts = launch_counts()
+        row = json.loads(out.read_text()) if rc == 0 else None
+    if rc != 0:
+        raise AssertionError(f"alignpair failed: rc={rc}")
+    _check_rows([("anc", a, "des", b)], [row])
+    took = {n: counts[n] for n in ("wavefront_fill", "traceback_walk",
+                                   "wavefront_segment", "traceback_walk_segment")}
+    if took != {"wavefront_fill": 1, "traceback_walk": 1, "wavefront_segment": 0,
+                "traceback_walk_segment": 0}:
+        raise AssertionError(f"the lone pair took {took}, not the fill and walk")
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    _, rows = _run_batch([("anc", a, "des", b)], dev)
+    batch_wall = time.perf_counter() - t0
+    if (launch_counts()["wavefront_fill"], launch_counts()["traceback_walk"]) != (1, 1):
+        raise AssertionError("batch_align did not take the fill and walk")
+    long_r, = engine.viterbi_align_batch(*_encoded([(a, b)]), aln.subst_matrix,
+                                         aln.gap, long_slots=0, device=dev)
+    want = (long_r.seq0, long_r.seq1, np.float32(long_r.score))
+    for what, r in (("alignpair", row), ("batch_align", rows[0])):
+        got = (r["alignment"]["anc"], r["alignment"]["des"], np.float32(r["score"]))
+        if got != want:
+            raise AssertionError(f"lone pair through {what}: differs from the long path")
+    fill_ms = timer.seconds("wavefront_fill") * 1e3
+    walk_ms = timer.seconds("traceback_walk") * 1e3
+    say("lonepair", f"[{card}] {len(a)} x {len(b)} nt through alignpair: {wall:.2f} s "
+        f"wall (batch_align {batch_wall:.2f} s); route: the fill kernel, strips of "
+        f"{launch.W} x {launch.warps} warps x {launch.blocks} blocks, "
+        f"{fill_ms:.2f} ms, and the whole-stack walk {walk_ms:.2f} ms (CUDA "
+        f"events); equal to the long path's alignment and score")
+    return {"wall": wall, "batch_wall": batch_wall, "fill_ms": fill_ms,
+            "walk_ms": walk_ms, "launch": launch}
+
+
 # --- phase 9: the triplet models ---------------------------------------------
 def _triplet_model(name):
     return triplet_hmm.build_triplet_model(alignment_params(name))
@@ -2286,6 +2415,7 @@ def main() -> int:
     main_run = phase_main(dev)
     long_run = phase_long(dev, main_run["named"])
     run_longpair(dev, card, LONGPAIR_NT)
+    run_lonepair(dev, card)
     sample_run = phase_sample(dev, card)
     phase_msa(dev, card)
     triplet_run = phase_triplet(dev, card)

@@ -18,12 +18,14 @@ import collections
 import dataclasses
 
 import numpy as np
+import torch
 
 from coati_tpu_torch.align import longseq
 from coati_tpu_torch.device import download, resolve_device, upload
 from coati_tpu_torch.kernels import traceback_walk as _walk
 from coati_tpu_torch.kernels import wavefront_fill as _fill
 from coati_tpu_torch.kernels import wavefront_score as _score
+from coati_tpu_torch.kernels import wavefront_segment as _seg
 from coati_tpu_torch.params import params_from_numpy
 
 
@@ -104,12 +106,36 @@ def fused_align_ops(aseq, bseq, lens_a, lens_b, table, gap_consts, *, k,
     """Viterbi fill then traceback walk on the current stream.
 
     Returns (ops [max_steps, B] int8 walking backward, score [B] f32) on the
-    inputs' device. The bp stack is released when this returns; the
-    caching allocator reuses it in stream order, after the walk."""
+    inputs' device. Up to k = wavefront_fill.MAX_K the fill kernel and the
+    whole-stack walk, on a stack in row layout; a larger k the sweep kernel
+    over every diagonal from an empty carry with backpointers, and the
+    segment walk over that one segment (diagonal layout). One code path on
+    both devices. The bp stack is released when this returns; the caching
+    allocator reuses it in stream order, after the walk."""
+    if k > _fill.MAX_K:
+        return _sweep_align_ops(aseq, bseq, lens_a, lens_b, table, gap_consts,
+                                k=k, max_steps=max_steps)
     corners, bp = _fill.wavefront_fill(aseq, bseq, lens_a, lens_b, table,
                                        gap_consts, k=k)
     return _walk.traceback_walk(bp, corners, lens_a, lens_b, k=k,
                                 max_steps=max_steps)
+
+
+def _sweep_align_ops(aseq, bseq, lens_a, lens_b, table, gap_consts, *, k,
+                     max_steps):
+    """fused_align_ops through the sweep kernel and the segment walk: the
+    whole matrix as one segment."""
+    B, NA = aseq.shape
+    NB = bseq.shape[1]
+    carry = _seg.empty_carry(B, NB + k, k, aseq.device)
+    adj, bp, _ = _seg.wavefront_segment(
+        aseq, bseq, lens_a, lens_b, table, gap_consts, carry, 0, k=k,
+        n_steps=NA + NB + 2 * k - 1, want_bp=True, want_carry=False)
+    state = torch.empty((4, B), dtype=torch.int32, device=aseq.device)
+    ops = torch.full((max_steps, B), -1, dtype=torch.int8, device=aseq.device)
+    _, ops, score = _walk.walk_segment(bp, 0, state, ops, k=k,
+                                       start=(adj, lens_a, lens_b))
+    return ops, score
 
 
 def _long_groups(long_pairs, enc_as, enc_bs, k):

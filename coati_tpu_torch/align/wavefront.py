@@ -30,7 +30,9 @@ layout the sample walk reads (a cell's three values in one 12-byte load).
 
 The backpointer output is [B, n_steps, C] uint8 (pair-major), row d - d_start
 for diagonal d; the whole matrix has Dtot = NA+NB+2k-1 diagonals. Byte bits
-0-1 / 2-3 / 4-5 hold the M / D / I predecessor state.
+0-1 / 2-3 / 4-5 hold the M / D / I predecessor state. The fill kernel's stack
+is in row layout instead (kernels/wavefront_fill.py rows_from_diagonals);
+traceback_rows_plain walks it.
 """
 
 from __future__ import annotations
@@ -222,7 +224,9 @@ def traceback_plain(bp, corners, lens_a, lens_b, *, k: int, max_steps: int):
     """Backward walk of every pair from its corner, all pairs one step per
     loop iteration (the while-loop form of traceback_ops_impl).
 
-    bp [B, Dtot, C] uint8 from wavefront_plain or the fill kernel. Returns
+    bp [B, Dtot, C] uint8 in diagonal layout, from wavefront_plain or the
+    segment kernel (kernels/wavefront_segment.py); the fill kernel's stack
+    is in row layout and takes traceback_rows_plain. Returns
     (ops, score): ops [max_steps, B] int8, op codes 0=match 1=delete
     2=insert walking BACKWARD from the corner with -1 after each walk's
     end; score [B] f32 = max(cM, max(cD, cI))."""
@@ -240,6 +244,35 @@ def traceback_plain(bp, corners, lens_a, lens_b, *, k: int, max_steps: int):
         if not bool(active.any()):
             break
         code = bp[rows, i + j, j].long()
+        nxt = (code >> (2 * st)) & 3
+        di = torch.where(st == 0, 1, torch.where(st == 1, k, 0))
+        dj = torch.where(st == 0, 1, torch.where(st == 1, 0, k))
+        ops[s] = torch.where(active, st, -1).to(torch.int8)
+        i = torch.where(active, i - di, i)
+        j = torch.where(active, j - dj, j)
+        st = torch.where(active, nxt, st)
+    return ops, score
+
+
+def traceback_rows_plain(bp, corners, lens_a, lens_b, *, k: int,
+                         max_steps: int):
+    """traceback_plain over a stack in row layout, bp [B, R, Cr] uint8 with
+    cell (i, j) at [p, i, j] (kernels/wavefront_fill.py): the same walk, op
+    for op."""
+    cM, cD, cI = corners
+    B = cM.shape[0]
+    dev = cM.device
+    st = argmax_mdi(cM, cD, cI).long()
+    score = torch.maximum(cM, torch.maximum(cD, cI))
+    i = lens_a.long() + (k - 1)
+    j = lens_b.long() + (k - 1)
+    rows = torch.arange(B, device=dev)
+    ops = torch.full((max_steps, B), -1, dtype=torch.int8, device=dev)
+    for s in range(max_steps):
+        active = (i > k - 1) | (j > k - 1)
+        if not bool(active.any()):
+            break
+        code = bp[rows, i, j].long()
         nxt = (code >> (2 * st)) & 3
         di = torch.where(st == 0, 1, torch.where(st == 1, k, 0))
         dj = torch.where(st == 0, 1, torch.where(st == 1, 0, k))

@@ -7,6 +7,14 @@ tri-mg, tri-ecm, dna); msa and sample the marginal ones, as in the JAX
 package. Those that align take --device {cuda,cpu}, default cuda; asking for
 cuda where there is none is an error, not a silent move to the CPU. Not
 ported: --multihost, --trace-dir.
+
+--platform X (or --platform=X), anywhere on the command line, and the
+COATI_TPU_FORCE_PLATFORM environment variable are taken as coati-tpu takes
+them (_resolve_platform): "cpu" means --device cpu unless --device was given;
+any other value (auto, default, tpu, gpu) leaves the port's default device,
+the card. That differs from coati-tpu by design: its "auto" picks the CPU for
+inputs under 512 KiB, to spare a remote TPU's start-up; the port's entry
+points run on the card unless the CPU is asked for.
 """
 
 from __future__ import annotations
@@ -248,8 +256,45 @@ VERBS = {
 }
 
 
+def _resolve_platform(argv):
+    """(platform, argv without --platform X / --platform=X): the flag's last
+    value, else COATI_TPU_FORCE_PLATFORM, else "auto" (coati_tpu/cli.py
+    _resolve_platform, without its choice by input size)."""
+    import os
+
+    platform = os.environ.get("COATI_TPU_FORCE_PLATFORM", "auto") or "auto"
+    out = []
+    i = 0
+    while i < len(argv):
+        if argv[i] == "--platform" and i + 1 < len(argv):
+            platform = argv[i + 1]
+            i += 2
+            continue
+        if argv[i].startswith("--platform="):
+            platform = argv[i].split("=", 1)[1]
+            i += 1
+            continue
+        out.append(argv[i])
+        i += 1
+    return platform, out
+
+
+# the verbs that take --device
+DEVICE_VERBS = ("alignpair", "msa", "sample", "batch")
+
+
+def _apply_platform(argv):
+    """argv with --platform stripped and, for platform "cpu", --device cpu
+    added to a verb that takes --device and was not given one."""
+    platform, out = _resolve_platform(argv)
+    explicit = any(a == "--device" or a.startswith("--device=") for a in out[1:])
+    if platform == "cpu" and out and out[0] in DEVICE_VERBS and not explicit:
+        out += ["--device", "cpu"]
+    return out
+
+
 def main(argv=None) -> int:
-    argv = list(sys.argv[1:] if argv is None else argv)
+    argv = _apply_platform(list(sys.argv[1:] if argv is None else argv))
     if not argv or argv[0] in ("-h", "--help", "help"):
         print(f"Usage: {PROG} command [options]\n\nCommands available:")
         for v in VERBS:

@@ -1,6 +1,8 @@
 // Shared helpers of the marginal pair-HMM kernels: the semiring zero, the
 // state preference, the log semiring's sum, and the one cell update that the
-// fill, segment, score and Forward kernels all run.
+// fill, segment, score and Forward kernels all run (cell_compute; the sweep
+// reads its predecessors from a ring of diagonals with cell_update, the fill
+// keeps them in registers).
 #pragma once
 
 #include <cfloat>
@@ -65,36 +67,35 @@ __device__ __forceinline__ float ring_load(const float* p) {
   return kCg ? __ldcg(p) : *p;
 }
 
-// Cell (i, j) of one pair's matrix, on diagonal d = i + j, from the ring
-// planes of diagonals d-2 (r2) and d-k (rk), each M, D, I planes of S slots
-// with column j at slot j - off (a whole diagonal: S = C, off = 0; one band
-// of columns [j0, j1) and its k halo columns: S = k + j1 - j0, off = j0 - k).
-// i and j are the pair's global indices whatever the planes hold. a and b are the pair's sequences, tab the [rows, 15] table. Writes M, D, I
+// Cell (i, j) of one pair's matrix from its predecessors' values as read:
+// (i-1, j-1) p2M/p2D/p2I, (i-k, j) pkM/pkD/pkI, (i, j-k) pkMs/pkIs, and the
+// emission sub = table[a[i-k], b[j-k]] (0 for the gap code; read only when
+// i, j >= k). Predecessors left of or above the matrix take LOWEST here,
+// whatever was read, as the reference's shifted-in slots do. Writes M, D, I
 // and returns the packed backpointer byte. Every add is the reference's, in
 // its order (coati_tpu/align/wavefront.py:182-195); the semiring's sums
-// (max, or with kLog lse) nest as plus2(plus2(a, b), c); the backpointers use the comparands of :218-220;
-// the two margin formulas are one explicitly rounded FMA each, as XLA:CPU
-// computes them (:154, :160). Predecessors left of or above the matrix hold
-// LOWEST, as the reference's shifted-in slots do. Compile with -fmad=false.
-// kCg: read the ring past L1 (ld.global.cg), for a ring that blocks on other
-// SMs write. The backpointer byte is of use only in the tropical semiring.
-template <bool kCg = false, bool kLog = false>
-__device__ __forceinline__ uint8_t cell_update(
-    int i, int j, int k, int S, int off, const float* r2, const float* rk,
-    const int32_t* __restrict__ a, const int32_t* __restrict__ b,
-    const float* tab, const Gap& g, float& M, float& D, float& I) {
-  const bool diag = i >= 1 && j >= 1;  // (i-1, j-1)
-  const bool up = i >= k;              // (i-k, j)
-  const bool left = j >= k;            // (i, j-k)
-  const int c = j - off;               // j's slot in the planes
-  const float p2M = diag ? ring_load<kCg>(r2 + c - 1) : kLowest;
-  const float p2D = diag ? ring_load<kCg>(r2 + S + c - 1) : kLowest;
-  const float p2I = diag ? ring_load<kCg>(r2 + 2 * S + c - 1) : kLowest;
-  const float pkM = up ? ring_load<kCg>(rk + c) : kLowest;
-  const float pkD = up ? ring_load<kCg>(rk + S + c) : kLowest;
-  const float pkI = up ? ring_load<kCg>(rk + 2 * S + c) : kLowest;
-  const float pkMs = left ? ring_load<kCg>(rk + c - k) : kLowest;
-  const float pkIs = left ? ring_load<kCg>(rk + 2 * S + c - k) : kLowest;
+// (max, or with kLog lse) nest as plus2(plus2(a, b), c); the backpointers use
+// the comparands of :218-220; the two margin formulas are one explicitly
+// rounded FMA each, as XLA:CPU computes them (:154, :160). Compile with
+// -fmad=false. The backpointer byte is of use only in the tropical semiring.
+// kBody: the caller knows i, j >= k (every predecessor inside the matrix),
+// so the masks and the margins are left out; the values are the same.
+template <bool kLog = false, bool kBody = false>
+__device__ __forceinline__ uint8_t cell_compute(
+    int i, int j, int k, float p2M, float p2D, float p2I, float pkM,
+    float pkD, float pkI, float pkMs, float pkIs, float sub, const Gap& g,
+    float& M, float& D, float& I) {
+  const bool diag = kBody || (i >= 1 && j >= 1);  // (i-1, j-1)
+  const bool up = kBody || i >= k;                 // (i-k, j)
+  const bool left = kBody || j >= k;               // (i, j-k)
+  p2M = diag ? p2M : kLowest;
+  p2D = diag ? p2D : kLowest;
+  p2I = diag ? p2I : kLowest;
+  pkM = up ? pkM : kLowest;
+  pkD = up ? pkD : kLowest;
+  pkI = up ? pkI : kLowest;
+  pkMs = left ? pkMs : kLowest;
+  pkIs = left ? pkIs : kLowest;
 
   // partial sums shared by the recurrence and the backpointer comparands
   const float m2m0 = __fadd_rn(__fadd_rn(p2M, g.ng), g.ng);
@@ -105,9 +106,6 @@ __device__ __forceinline__ uint8_t cell_update(
   const float m2i0 = __fadd_rn(pkMs, g.go);
 
   if (up && left) {
-    // code 15 ('-') has no column: the reference's one-hot sum gives 0
-    const int code = b[j - k];
-    const float sub = code < 15 ? tab[a[i - k] * 15 + code] : 0.0f;
     M = plus2<kLog>(plus2<kLog>(__fadd_rn(m2m0, sub), __fadd_rn(d2m0, sub)),
                     __fadd_rn(i2m0, sub));
     D = plus2<kLog>(plus2<kLog>(__fadd_rn(m2d0, g.gek1), __fadd_rn(pkD, g.gek)),
@@ -126,6 +124,42 @@ __device__ __forceinline__ uint8_t cell_update(
   const unsigned bd = argmax_mdi(m2d0, __fadd_rn(pkD, g.ge), i2d0);
   const unsigned bi = (m2i0 > __fadd_rn(pkIs, g.ge)) ? 0u : 2u;
   return (uint8_t)(bm | (bd << 2) | (bi << 4));
+}
+
+// Cell (i, j) of one pair's matrix, on diagonal d = i + j, from the ring
+// planes of diagonals d-2 (r2) and d-k (rk), each M, D, I planes of S slots
+// with column j at slot j - off (a whole diagonal: S = C, off = 0; one band
+// of columns [j0, j1) and its k halo columns: S = k + j1 - j0, off = j0 - k).
+// i and j are the pair's global indices whatever the planes hold. a and b
+// are the pair's sequences, tab the [rows, 15] table. Reads only the
+// predecessors inside the matrix and then is cell_compute.
+// kCg: read the ring past L1 (ld.global.cg), for a ring that blocks on other
+// SMs write.
+template <bool kCg = false, bool kLog = false>
+__device__ __forceinline__ uint8_t cell_update(
+    int i, int j, int k, int S, int off, const float* r2, const float* rk,
+    const int32_t* __restrict__ a, const int32_t* __restrict__ b,
+    const float* tab, const Gap& g, float& M, float& D, float& I) {
+  const bool diag = i >= 1 && j >= 1;  // (i-1, j-1)
+  const bool up = i >= k;              // (i-k, j)
+  const bool left = j >= k;            // (i, j-k)
+  const int c = j - off;               // j's slot in the planes
+  const float p2M = diag ? ring_load<kCg>(r2 + c - 1) : kLowest;
+  const float p2D = diag ? ring_load<kCg>(r2 + S + c - 1) : kLowest;
+  const float p2I = diag ? ring_load<kCg>(r2 + 2 * S + c - 1) : kLowest;
+  const float pkM = up ? ring_load<kCg>(rk + c) : kLowest;
+  const float pkD = up ? ring_load<kCg>(rk + S + c) : kLowest;
+  const float pkI = up ? ring_load<kCg>(rk + 2 * S + c) : kLowest;
+  const float pkMs = left ? ring_load<kCg>(rk + c - k) : kLowest;
+  const float pkIs = left ? ring_load<kCg>(rk + 2 * S + c - k) : kLowest;
+  float sub = 0.0f;
+  if (up && left) {
+    // code 15 ('-') has no column: the reference's one-hot sum gives 0
+    const int code = b[j - k];
+    sub = code < 15 ? tab[a[i - k] * 15 + code] : 0.0f;
+  }
+  return cell_compute<kLog>(i, j, k, p2M, p2D, p2I, pkM, pkD, pkI, pkMs,
+                            pkIs, sub, g, M, D, I);
 }
 
 }  // namespace coati

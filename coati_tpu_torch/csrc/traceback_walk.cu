@@ -1,5 +1,6 @@
-// Backward traceback walk over packed backpointers, one thread per pair:
-// over a whole backpointer stack, or segment by segment for long pairs.
+// Backward traceback walk over packed backpointers: over a whole stack in
+// row layout, a warp a pair with the stack read through windows in shared
+// memory; or segment by segment for long pairs, a thread a pair.
 //
 // Replaces the device walk coati_tpu/align/wavefront.py:271
 // traceback_ops_impl in its while-loop form (:388-417), and the segment
@@ -9,17 +10,28 @@
 // The hole-emitting diagonal scan of the JAX version (:321-386) exists
 // because TPU gathers are slow and is not carried over.
 //
-// What bounds it on an H100: the chain of dependent one-byte loads from the
-// backpointer stack in device memory, one per step, about max(la, lb) + gaps
-// steps per pair. Each thread keeps its (i, j, state) in registers, so the
-// step is one load and a few integer ops; the op stores of a warp at one step
-// are contiguous bytes. Latency is hidden only across pairs, by running one
-// thread per pair over the whole chunk.
+// What bounds it on an H100: the chain of dependent one-byte loads, one a
+// step, about max(la, lb) + gaps steps a pair. A stack of 64 pairs of
+// 1,056 slots is some 70 MB in row layout, more than the L2 holds, so a load
+// from the stack itself is a device-memory round trip (~0.5 us) a step.
 //
-// Layout: bp [B, Dtot, C] uint8 as written by wavefront_fill.cu; corners
-// cM/cD/cI [B] f32 (terminal-adjusted); ops [max_steps, B] int8, op codes
-// 0=match 1=delete 2=insert in backward order from the corner and -1 after
-// the walk's end; score [B] f32 = max(cM, max(cD, cI)).
+// Whole-stack walk (traceback_walk_kernel): a warp walks one pair. A step
+// lowers i by 1 or k, or j by 1 or k, so the S steps after (i, j) stay in
+// rows [i - kS, i] x columns [j - kS, j]. The warp copies the window of H =
+// 2kS rows and columns above and left of an anchor into shared memory with
+// cp.async (16-byte copies, the lanes side by side along a row); lane 0
+// walks S steps in it at shared-memory latency and stages their op codes,
+// which the warp then stores together. Two windows a warp: at the start of
+// each round of S steps the warp anchors the next window at the walk's
+// position and fetches it while lane 0 walks on in the current one, which
+// still holds the 2S steps after its own anchor; the fetch has S steps of
+// the walk to arrive in.
+//
+// Layout: bp [B, NA + k, Cp] uint8 as written by wavefront_fill.cu (cell
+// (i, j) at [p, i, j], Cp a multiple of 16); corners cM/cD/cI [B] f32
+// (terminal-adjusted); ops [max_steps, B] int8, op codes 0=match 1=delete
+// 2=insert in backward order from the corner and -1 after the walk's end;
+// score [B] f32 = max(cM, max(cD, cI)).
 //
 // Segment form: state [4, B] int32 holds each pair's (i, j, st, s) between
 // launches, s the number of ops written so far. The first launch of a walk
@@ -40,36 +52,116 @@ namespace {
 
 using coati::argmax_mdi;
 
+// One window: rows [r0, ia] x columns [c0, c0 + nch * 16) of pair p's
+// stack, anchored at (ia, ja), clipped at 0; row q at win + q * wb.
+struct Window {
+  int r0, c0;
+};
+
+__device__ __forceinline__ Window fetch_window(const uint8_t* bpp, int Cp,
+                                               int ia, int ja, int H, int wb,
+                                               uint8_t* win, int lane) {
+  Window v;
+  v.r0 = max(ia - H, 0);
+  v.c0 = max(ja - H, 0) & ~15;
+  const int nch = ((ja & ~15) + 16 - v.c0) >> 4;  // 16-byte chunks of a row, <= 32
+  const int per = 32 / nch;                        // rows the warp copies at once
+  const int rows = ia - v.r0 + 1;
+  const unsigned base = (unsigned)__cvta_generic_to_shared(win);
+  const int c = lane % nch;
+  for (int r = lane / nch; lane < per * nch && r < rows; r += per) {
+    const uint8_t* src = bpp + (size_t)(v.r0 + r) * Cp + v.c0 + 16 * c;
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(
+                     base + (unsigned)(r * wb + 16 * c)),
+                 "l"(src)
+                 : "memory");
+  }
+  asm volatile("cp.async.commit_group;" ::: "memory");
+  return v;
+}
+
+__device__ __forceinline__ void window_arrived() {
+  asm volatile("cp.async.wait_group 0;" ::: "memory");
+  __syncwarp();
+}
+
+// Shared memory a warp: two windows of (H + 1) rows of wb bytes, and S op
+// codes. kernels/traceback_walk.py window_bytes repeats it.
 __global__ void traceback_walk_kernel(
     const uint8_t* __restrict__ bp, const float* __restrict__ cM,
     const float* __restrict__ cD, const float* __restrict__ cI,
     const int32_t* __restrict__ lens_a, const int32_t* __restrict__ lens_b,
-    int8_t* __restrict__ ops, float* __restrict__ score, int B, int Dtot,
-    int C, int k, int max_steps) {
-  const int p = blockIdx.x * blockDim.x + threadIdx.x;
+    int8_t* __restrict__ ops, float* __restrict__ score, int B, int R,
+    int Cp, int k, int max_steps, int S) {
+  extern __shared__ __align__(16) uint8_t wsmem[];
+  const int H = 2 * k * S;
+  const int wb = ((H + 31) + 15) & ~15;  // bytes of a window row
+  const int win_bytes = (H + 1) * wb;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int p = blockIdx.x * (blockDim.x >> 5) + warp;
   if (p >= B) return;
+  // this warp's windows at wsmem[mine], wsmem[mine + win_bytes], its staged
+  // ops after them: offsets into wsmem, so that reads are shared-memory loads
+  const int mine = warp * (2 * win_bytes + ((S + 15) & ~15));
+  const int staged = mine + 2 * win_bytes;
+  const uint8_t* bpp = bp + (size_t)p * R * Cp;
+
   const float m = cM[p], d = cD[p], x = cI[p];
   unsigned st = argmax_mdi(m, d, x);
-  score[p] = fmaxf(m, fmaxf(d, x));
+  if (lane == 0) score[p] = fmaxf(m, fmaxf(d, x));
   int i = lens_a[p] + k - 1;
   int j = lens_b[p] + k - 1;
-  const uint8_t* bpp = bp + (size_t)p * Dtot * C;
   int s = 0;
   // the walk stops at (k-1, k-1); i, j < 0 only on a malformed bp stack
-  for (; s < max_steps && (i > k - 1 || j > k - 1) && i >= 0 && j >= 0; ++s) {
-    const unsigned code = bpp[(size_t)(i + j) * C + j];
-    ops[(size_t)s * B + p] = (int8_t)st;
-    if (st == 0) {
-      i -= 1;
-      j -= 1;
-    } else if (st == 1) {
-      i -= k;
-    } else {
-      j -= k;
-    }
-    st = (code >> (2 * st)) & 3u;
+  bool done = !(s < max_steps && (i > k - 1 || j > k - 1) && i >= 0 && j >= 0);
+  Window cur = {0, 0};
+  if (!done) {
+    cur = fetch_window(bpp, Cp, i, j, H, wb, wsmem + mine, lane);
+    window_arrived();
   }
-  for (; s < max_steps; ++s) ops[(size_t)s * B + p] = -1;
+  for (int round = 0; !done; ++round) {
+    // from the second round on, the next window is fetched at the walk's
+    // position while lane 0 walks on in the current one
+    Window next = cur;
+    if (round > 0)
+      next = fetch_window(bpp, Cp, i, j, H, wb, wsmem + mine + (round & 1) * win_bytes, lane);
+    const int w = mine + ((round > 0 ? round - 1 : 0) & 1) * win_bytes;
+    int n = 0;
+    if (lane == 0) {
+      const int org = w - cur.r0 * wb - cur.c0;  // cell (i, j) at wsmem[org + i * wb + j]
+      const int lim = min(S, max_steps - s);
+      for (; n < lim; ++n) {
+        if (!((i > k - 1 || j > k - 1) && i >= 0 && j >= 0)) {
+          done = true;
+          break;
+        }
+        const unsigned code = wsmem[org + i * wb + j];
+        wsmem[staged + n] = (uint8_t)st;
+        i -= st == 0 ? 1 : (st == 1 ? k : 0);
+        j -= st == 0 ? 1 : (st == 1 ? 0 : k);
+        st = (code >> (2 * st)) & 3u;
+      }
+      if (!(s + n < max_steps && (i > k - 1 || j > k - 1) && i >= 0 && j >= 0))
+        done = true;
+    }
+    __syncwarp();
+    n = __shfl_sync(0xffffffffu, n, 0);
+    i = __shfl_sync(0xffffffffu, i, 0);
+    j = __shfl_sync(0xffffffffu, j, 0);
+    st = __shfl_sync(0xffffffffu, st, 0);
+    done = __shfl_sync(0xffffffffu, (int)done, 0) != 0;
+    for (int q = lane; q < n; q += 32)
+      ops[(size_t)(s + q) * B + p] = (int8_t)wsmem[staged + q];
+    s += n;
+    if (round > 0) {
+      window_arrived();  // also: every lane has read `staged`
+      cur = next;
+    } else {
+      __syncwarp();
+    }
+  }
+  asm volatile("cp.async.wait_all;" ::: "memory");
+  for (int q = s + lane; q < max_steps; q += 32) ops[(size_t)q * B + p] = -1;
 }
 
 __global__ void traceback_walk_segment_kernel(
@@ -124,16 +216,27 @@ __global__ void traceback_walk_segment_kernel(
 extern "C" int coati_traceback_walk(
     const void* bp, const void* cM, const void* cD, const void* cI,
     const void* lens_a, const void* lens_b, void* ops, void* score, int B,
-    int Dtot, int C, int k, int max_steps, void* stream) {
+    int R, int Cp, int k, int max_steps, int S, int warps, void* stream) {
   if (B == 0) return 0;
-  const int threads = 128;
-  traceback_walk_kernel<<<(B + threads - 1) / threads, threads, 0,
+  const int H = 2 * k * S;
+  const int wb = ((H + 31) + 15) & ~15;
+  // a window row is at most 32 copies of 16 bytes (fetch_window)
+  if (S < 1 || warps < 1 || warps > 32 || Cp % 16 != 0 || wb > 32 * 16)
+    return (int)cudaErrorInvalidValue;
+  const size_t per_warp = 2 * (size_t)(H + 1) * wb + ((S + 15) & ~15);
+  const size_t smem = per_warp * warps;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        traceback_walk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  traceback_walk_kernel<<<(B + warps - 1) / warps, 32 * warps, smem,
                           static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(bp), static_cast<const float*>(cM),
       static_cast<const float*>(cD), static_cast<const float*>(cI),
       static_cast<const int32_t*>(lens_a), static_cast<const int32_t*>(lens_b),
-      static_cast<int8_t*>(ops), static_cast<float*>(score), B, Dtot, C, k,
-      max_steps);
+      static_cast<int8_t*>(ops), static_cast<float*>(score), B, R, Cp, k,
+      max_steps, S);
   return (int)cudaGetLastError();
 }
 

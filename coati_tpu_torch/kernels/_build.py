@@ -46,11 +46,12 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 SIGNATURES = {
-    # aseq bseq lens_a lens_b table gap ring bp corners,
-    # B NA NB k table_len ring_shared table_shared threads, stream
-    "coati_wavefront_fill": [_P] * 9 + [_I] * 8 + [_P],
-    # bp cM cD cI lens_a lens_b ops score, B Dtot C k max_steps, stream
-    "coati_traceback_walk": [_P] * 8 + [_I] * 5 + [_P],
+    # aseq bseq lens_a lens_b table gap bp corners edge gprog, B NA NB k Cp
+    # table_len table_shared W warps_per_pair pairs_per_block blocks_per_pair,
+    # stream
+    "coati_wavefront_fill": [_P] * 10 + [_I] * 11 + [_P],
+    # bp cM cD cI lens_a lens_b ops score, B R Cp k max_steps S warps, stream
+    "coati_traceback_walk": [_P] * 8 + [_I] * 7 + [_P],
     # aseq bseq lens_a lens_b table gap ring_in corners_in ring_out corners_out
     # adj ring_scratch bp sync halo next stamps, B NA NB k d0 T route want_bp
     # blocks_per_pair band_width halo_slots table_len threads, stream

@@ -1,10 +1,11 @@
 """Wrappers of the traceback walk kernels (csrc/traceback_walk.cu).
 
 Counterparts of coati_tpu/align/wavefront.py traceback_ops_impl (the walk
-over a whole backpointer stack) and coati_tpu/align/longseq.py
-_walk_segment (the walk of long pairs, one segment at a time). CPU tensors
-take the plain PyTorch versions (align/wavefront.py traceback_plain,
-walk_segment_plain); CUDA tensors launch the kernels or raise.
+over a whole backpointer stack, here in the fill kernel's row layout) and
+coati_tpu/align/longseq.py _walk_segment (the walk of long pairs, one
+segment at a time, diagonal layout). CPU tensors take the plain PyTorch
+versions (align/wavefront.py traceback_rows_plain, walk_segment_plain);
+CUDA tensors launch the kernels or raise.
 """
 
 from __future__ import annotations
@@ -12,19 +13,42 @@ from __future__ import annotations
 import torch
 
 from coati_tpu_torch.align.wavefront import (
-    traceback_plain,
+    traceback_rows_plain,
     walk_segment_plain,
 )
 from coati_tpu_torch.kernels import _build
 
 LAUNCHES = 0  # kernel launches made by traceback_walk
 SEGMENT_LAUNCHES = 0  # kernel launches made by walk_segment
+SMEM_BYTES = 232_448  # dynamic shared memory one H100 block may use
+# S, steps a window of the whole-stack walk serves, and warps (pairs) a block.
+# On an H100 at the B = 64 cell (sweep_shapes.py fill): S = 16 0.17-0.18 ms,
+# 32 0.152-0.153, 48 0.154-0.157, 64 0.163-0.166 at 1-4 warps a block; at the
+# 1,500 nt launch 0.155, 0.140-0.141, 0.143, 0.147-0.148. Shorter windows do
+# not hide the copy, longer ones copy more than they save; warps a block do
+# not matter.
+WINDOW_STEPS = 32
+WALK_WARPS = 2
+
+
+def window_steps(k: int) -> int:
+    """S at gap length k: WINDOW_STEPS at k = 1, fewer at larger k so that a
+    window of 2kS rows and columns stays near the size it has at k = 1."""
+    return max(4, WINDOW_STEPS // k)
+
+
+def window_bytes(k: int, S: int) -> int:
+    """Shared memory one warp of the whole-stack walk takes: two windows of
+    2kS + 1 rows of 2kS + 31 bytes rounded up to 16, and S staged ops."""
+    H = 2 * k * S
+    wb = -(-(H + 31) // 16) * 16
+    return 2 * (H + 1) * wb + -(-S // 16) * 16
 
 
 def _check(bp, corners, lens_a, lens_b):
     B = lens_a.shape[0]
     if bp.dtype != torch.uint8 or bp.dim() != 3 or bp.shape[0] != B:
-        raise ValueError(f"bp must be [B, Dtot, C] uint8, got {tuple(bp.shape)} {bp.dtype}")
+        raise ValueError(f"bp must be [B, R, Cp] uint8, got {tuple(bp.shape)} {bp.dtype}")
     for name, t, want in (("cM", corners[0], torch.float32),
                           ("cD", corners[1], torch.float32),
                           ("cI", corners[2], torch.float32),
@@ -42,17 +66,29 @@ def _check(bp, corners, lens_a, lens_b):
         raise ValueError("bp must be contiguous")
 
 
-def traceback_walk(bp, corners, lens_a, lens_b, *, k: int, max_steps: int):
-    """Backward walk: (ops [max_steps, B] int8, score [B] f32) as
-    traceback_plain returns them. max_steps >= max(la + lb) holds every walk
-    (a walk makes at most one op per consumed residue)."""
+def traceback_walk(bp, corners, lens_a, lens_b, *, k: int, max_steps: int,
+                   S: int | None = None, warps: int = WALK_WARPS):
+    """Backward walk over a stack in row layout, bp [B, NA + k, Cp] uint8 as
+    wavefront_fill returns it: (ops [max_steps, B] int8, score [B] f32) as
+    traceback_rows_plain returns them. max_steps >= max(la + lb) holds every
+    walk (a walk makes at most one op per consumed residue). S: steps a
+    window serves (default window_steps(k)); warps: pairs a block."""
     global LAUNCHES
     _check(bp, corners, lens_a, lens_b)
     if bp.device.type == "cpu":
-        return traceback_plain(bp, corners, lens_a, lens_b, k=k, max_steps=max_steps)
+        return traceback_rows_plain(bp, corners, lens_a, lens_b, k=k,
+                                    max_steps=max_steps)
     if bp.device.type != "cuda":
         raise ValueError(f"unsupported device {bp.device}")
-    B, Dtot, C = bp.shape
+    B, R, Cp = bp.shape
+    if Cp % 16:
+        raise ValueError(f"rows of the stack must be a multiple of 16 bytes, got {Cp}")
+    S = window_steps(k) if S is None else S
+    if (S < 1 or not 1 <= warps <= 32 or warps * window_bytes(k, S) > SMEM_BYTES
+            or 2 * k * S + 31 > 32 * 16):
+        raise ValueError(f"{warps} warps of windows for S={S} at k={k}: over "
+                         f"{SMEM_BYTES} bytes of shared memory a block, or "
+                         f"window rows over 512 bytes")
     ops = torch.empty((max_steps, B), dtype=torch.int8, device=bp.device)
     score = torch.empty((B,), dtype=torch.float32, device=bp.device)
     lib = _build.load()
@@ -61,7 +97,8 @@ def traceback_walk(bp, corners, lens_a, lens_b, *, k: int, max_steps: int):
         rc = lib.coati_traceback_walk(
             bp.data_ptr(), corners[0].data_ptr(), corners[1].data_ptr(),
             corners[2].data_ptr(), lens_a.data_ptr(), lens_b.data_ptr(),
-            ops.data_ptr(), score.data_ptr(), B, Dtot, C, k, max_steps, stream,
+            ops.data_ptr(), score.data_ptr(), B, R, Cp, k, max_steps, S,
+            warps, stream,
         )
     _build.check(rc, "traceback_walk")
     LAUNCHES += 1

@@ -20,14 +20,12 @@ import torch
 from coati_tpu_torch.align.wavefront import LOWEST, wavefront_plain
 from coati_tpu_torch.kernels import _build
 from coati_tpu_torch.kernels.wavefront_fill import (
+    MULTI_BLOCK_SLOTS,
     SMEM_BYTES,
     _check,
-    ring_in_shared,
-    ring_slots,
 )
 
 LAUNCHES = 0  # kernel launches made by wavefront_segment
-MULTI_BLOCK_SLOTS = 4096  # slots a pair above which several blocks sweep it
 # Narrowest band the Viterbi sweeps spread a pair to: on an H100 one 8,000 nt
 # pair took 1.40 us a diagonal in 32-33 bands of 243-251 columns and 1.54 in
 # 127 of 63; one 32,000 nt pair 1.62 in 132 of 243 (sweep_shapes.py, the
@@ -39,6 +37,18 @@ BAND_MIN_COLUMNS = 243
 # several blocks a pair, each a band of columns, ring in shared memory.
 ROUTES = {"global": 0, "shared": 1, "barrier": 2, "bands": 3}
 HALO_SLOTS = 256  # F: diagonals of each band boundary's halo ring
+
+
+def ring_slots(k: int) -> int:
+    """Diagonals the sweep keeps: the last max(k, 2) plus the one it writes."""
+    return max(k, 2) + 1
+
+
+def ring_in_shared(C: int, k: int) -> bool:
+    """True when one block's ring of ring_slots(k) diagonals x 3 f32 states x
+    C slots fits its shared memory; else it lives in a per-pair global
+    scratch."""
+    return ring_slots(k) * 3 * C * 4 <= SMEM_BYTES
 
 
 def sweep_shape(B: int, C: int, device, min_columns: int = BAND_MIN_COLUMNS,

@@ -3,9 +3,9 @@
 at several launch shapes, on its two several-blocks routes in turns, and
 hold every shape to the one-block result.
 
-    python3 sweep_shapes.py [segment] [forward] [triplet]
+    python3 sweep_shapes.py [segment] [forward] [triplet] [fill]
                                  # from the repository root; needs one card;
-                                 # no argument: all three tables
+                                 # no argument: all four tables
 
 For square random pairs of several sizes, alone and in a group of four, and
 for several (blocks a pair, threads a block), it runs one 4,000-diagonal
@@ -33,6 +33,23 @@ The rows of these two tables set kernels/wavefront_segment.py sweep_shape
 and BAND_MIN_COLUMNS, and kernels/wavefront_forward.py forward_shape and
 FORWARD_MIN_COLUMNS (their comments name the rows).
 
+The fill table times the Viterbi fill kernel (csrc/wavefront_fill.cu) at
+its launch shapes, strips of W columns x warps a pair x pairs a block (x
+blocks a pair for pairs above 4,096 slots), each held bit-equal to the
+shape fill_shape chooses on the pairs' true cells and corners: at B = 64
+pairs of 600-999 nt (the kernel cell of chip_smoke.py), at one chunk of each
+bucket of the main path's mix (156, 471, 999 and 1,500 nt, as many pairs as
+the engine puts in a launch), and at k = 3. Then one pair of 8,000 nt, one
+of 16,000 and two of 16,000 through the fill and the whole-stack walk
+against the sweep's band route (wavefront_segment over every diagonal and
+the segment walk), ops and scores equal. Last the whole-stack walk
+(csrc/traceback_walk.cu) at S steps a window and warps a block, at the
+B = 64 cell and at the 1,500 nt chunk, each equal op for op to the default.
+The windows are copied with cp.async; a TMA tile copy was not tried.
+CUDA events, mean of 5 launches after a warm-up (2 for the lone pairs).
+Its rows set kernels/wavefront_fill.py fill_shape and
+kernels/traceback_walk.py WINDOW_STEPS and WALK_WARPS.
+
 Last the two triplet kernels (csrc/triplet_rows.cu, csrc/triplet_walk.cu),
 which sweep a row one column a thread, a tile of the block's threads at a
 time: the two tri-mg batches chip_smoke.py aligns and the first 512 codon
@@ -53,6 +70,7 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from chip_smoke import (  # noqa: E402
+    LENGTH_MIX,
     TRIPLET_BATCHES,
     TRIPLET_LONG_NT,
     TripletBatch,
@@ -60,13 +78,17 @@ from chip_smoke import (  # noqa: E402
 )
 from coati_tpu_torch import triplet_hmm  # noqa: E402
 from coati_tpu_torch import triplet_wavefront as tw  # noqa: E402
+from coati_tpu_torch.align.engine import _pad_batch, _sweep_align_ops  # noqa: E402
 from coati_tpu_torch.kernels import (  # noqa: E402
+    traceback_walk,
     triplet_rows,
     triplet_walk,
+    wavefront_fill,
     wavefront_forward,
     wavefront_score,
     wavefront_segment,
 )
+from coati_tpu_torch.utils import encode_marginal  # noqa: E402
 from coati_tpu_torch.params import alignment_params, params_from_numpy  # noqa: E402
 
 SEGMENT = 4000  # diagonals of the timed segment
@@ -81,6 +103,14 @@ TURNS = ("barrier", "bands")
 FWD_RTOL, FWD_ATOL = 4e-6, 2e-5  # chip_smoke.py's, of the Forward's values
 TRIPLET_THREADS = (512, 256, 128)  # the first is what the rest is held to
 TRIPLET_LONG_STEPS = 512  # codon steps of the long pair that are swept
+# fill table: (strips of W columns, warps a pair, pairs a block) at a bucket
+FILL_SHAPES = ((4, 5), (4, 9), (8, 2), (8, 3), (8, 5), (8, 9), (16, 1),
+               (16, 2), (16, 4))
+FILL_PAIRS = (1, 2)
+LONE = ((8_000, 1), (16_000, 1), (16_000, 2))  # (nt, pairs) of the lone pairs
+LONE_SHAPES = ((8, 1), (8, 2), (8, 4), (4, 1), (4, 2))  # (W, warps) spread over blocks
+WALK_S = (16, 32, 48, 64)
+WALK_WARPS = (1, 2, 4)
 
 
 def elapsed_ms(fn, reps: int = 2) -> float:
@@ -236,9 +266,10 @@ def triplet_table(dev, card):
 
 
 def main(argv=None) -> int:
-    tables = set(sys.argv[1:] if argv is None else argv) or {"segment", "forward", "triplet"}
-    if tables - {"segment", "forward", "triplet"}:
-        raise SystemExit("sweep_shapes: tables are segment, forward, triplet")
+    names = {"segment", "forward", "triplet", "fill"}
+    tables = set(sys.argv[1:] if argv is None else argv) or names
+    if tables - names:
+        raise SystemExit("sweep_shapes: tables are segment, forward, triplet, fill")
     if not torch.cuda.is_available():
         raise SystemExit("sweep_shapes: needs a CUDA device")
     dev = torch.device("cuda:0")
@@ -247,6 +278,8 @@ def main(argv=None) -> int:
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip().splitlines()[0].strip()
     print(card, flush=True)
+    if "fill" in tables:
+        fill_table(dev, card)
     if "triplet" in tables:
         triplet_table(dev, card)
     if "segment" in tables:
@@ -358,6 +391,142 @@ def skew_line(card, dev, B, n, d0, launch, shape, run):
           f"{(last[2] - t0) / 1e3:.1f} us, pace {p_last:.0f} ns a diagonal; so the "
           f"last waited {fill / 1e3:.1f} us beyond its pace = "
           f"{fill / max(1, n_b - 1):.0f} ns a hop", flush=True)
+
+
+def bucket_chunks(dev, p):
+    """(name, k, args): the B = 64 cell (random codes, as chip_smoke.py
+    makes it), one launch of each bucket of the main path's mix (the pairs
+    chip_smoke.py aligns, seed 0, as many as the engine puts in a launch),
+    and k = 3 at 471 nt."""
+    rng = np.random.default_rng(1)
+    la = rng.integers(200, 334, 64) * 3
+    lb = rng.integers(600, 1000, 64)
+    a = [rng.integers(0, 183, n).astype(np.int32) for n in la]
+    b = [rng.integers(0, 4, n).astype(np.int32) for n in lb]
+    out = [("B=64 cell, 600-999 nt", 1, a, b)]
+    pairs = make_pairs(10_000, np.random.default_rng(0), length_mix=LENGTH_MIX)
+    for nt, _ in LENGTH_MIX:
+        enc = [encode_marginal(x, y) for x, y in pairs if len(x) == nt]
+        q = -(-nt // 96) * 96
+        max_b = max(1, (1 << 30) // ((q + 1) * (q + 1)))
+        enc = enc[:max_b]
+        out.append((f"{nt} nt bucket, one launch", 1, [e[0] for e in enc],
+                    [e[1] for e in enc]))
+    enc = [encode_marginal(x, y) for x, y in pairs if len(x) == 471][:256]
+    out.append(("471 nt, k=3 (every length a multiple of 9 and 3)", 3,
+                [e[0][: len(e[0]) // 9 * 9] for e in enc],
+                [e[1][: len(e[1]) // 3 * 3] for e in enc]))
+    for name, k, aa, bb in out:
+        aseq, bseq, la, lb = _pad_batch(aa, bb, 96)
+        args = [torch.from_numpy(x).to(dev) for x in (aseq, bseq, la, lb)]
+        yield name, k, (*args, p.table, p.gap_consts), int((la + lb).max())
+
+
+def fill_table(dev, card):
+    aln = alignment_params()
+    p = params_from_numpy(aln.subst_matrix, aln.gap, dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    walk_args = []
+    for name, k, args, steps in bucket_chunks(dev, p):
+        if k != 1:
+            p3 = params_from_numpy(alignment_params(gap_len=k).subst_matrix,
+                                   alignment_params(gap_len=k).gap, dev)
+            args = (*args[:4], p3.table, p3.gap_consts)
+        B, C = args[0].shape[0], args[1].shape[1] + k
+        rule = wavefront_fill.fill_shape(B, C, k, args[4].numel(), sms)
+        want_c, want = wavefront_fill.wavefront_fill(*args, k=k, launch=rule)
+        mask = wavefront_fill.true_cells(args[2], args[3], k, *want.shape[1:])
+        print(f"[{card}] fill, {name}: B={B} C={C} k={k}; fill_shape: W={rule.W} "
+              f"x {rule.warps} warps x {rule.pairs} pairs, {rule.passes} passes",
+              flush=True)
+        for W, warps in FILL_SHAPES:
+            for pairs in FILL_PAIRS:
+                try:
+                    launch = wavefront_fill.fill_launch(B, C, k, W, warps, pairs,
+                                                        table_len=args[4].numel())
+                except ValueError as e:
+                    print(f"[{card}]   W={W} x {warps} warps x {pairs} pairs: "
+                          f"not taken ({e})", flush=True)
+                    continue
+                got_c, got = wavefront_fill.wavefront_fill(*args, k=k, launch=launch)
+                same = (torch.equal(got[mask], want[mask])
+                        and all(torch.equal(x, y) for x, y in zip(got_c, want_c)))
+                if not same:
+                    raise AssertionError(f"fill {name} W={W} x {warps} x {pairs}: "
+                                         f"differs from fill_shape's launch")
+                del got
+                ms = elapsed_ms(lambda: wavefront_fill.wavefront_fill(
+                    *args, k=k, launch=launch), 5)
+                mark = " (fill_shape's choice)" if launch == rule else ""
+                print(f"[{card}]   W={W} x {warps} warps x {pairs} pairs, "
+                      f"{launch.passes} passes{mark}: equal; {ms:.4f} ms", flush=True)
+        rule_ms = elapsed_ms(lambda: wavefront_fill.wavefront_fill(*args, k=k), 5)
+        print(f"[{card}]   fill_shape's launch: {rule_ms:.4f} ms", flush=True)
+        if k == 1 and (name.startswith("B=64") or name.startswith("1500")):
+            walk_args.append((name, args, want_c, want, steps))
+        del want
+    lone_table(dev, card, p, sms)
+    for name, args, corners, bp, steps in walk_args:
+        ref, ref_score = traceback_walk.traceback_walk(bp, corners, args[2], args[3],
+                                                       k=1, max_steps=steps)
+        for S in WALK_S:
+            for warps in WALK_WARPS:
+                if warps * traceback_walk.window_bytes(1, S) > traceback_walk.SMEM_BYTES:
+                    continue
+                run = lambda: traceback_walk.traceback_walk(  # noqa: E731
+                    bp, corners, args[2], args[3], k=1, max_steps=steps, S=S,
+                    warps=warps)
+                ops, score = run()
+                if not (torch.equal(ops, ref) and torch.equal(score, ref_score)):
+                    raise AssertionError(f"walk {name} S={S} x {warps}: differs")
+                mark = (" (the default)" if (S, warps) == (
+                    traceback_walk.window_steps(1), traceback_walk.WALK_WARPS) else "")
+                print(f"[{card}] walk, {name}: S={S} x {warps} warps a block{mark}, "
+                      f"cp.async: equal; {elapsed_ms(run, 5):.4f} ms, "
+                      f"{int((ref >= 0).sum(0).max())} steps the longest walk",
+                      flush=True)
+
+
+def lone_table(dev, card, p, sms):
+    """Lone mid-size pairs: the fill kernel over several blocks a pair, and
+    the sweep's band route, fill and walk together; ops and scores equal."""
+    for n, B in LONE:
+        rng = np.random.default_rng(n + B)
+        a = torch.from_numpy(rng.integers(0, 183, (B, n)).astype(np.int32)).to(dev)
+        b = torch.from_numpy(rng.integers(0, 4, (B, n)).astype(np.int32)).to(dev)
+        lens = torch.full((B,), n, dtype=torch.int32, device=dev)
+        args = (a, b, lens, lens, p.table, p.gap_consts)
+        C = n + 1
+        rule = wavefront_fill.fill_shape(B, C, 1, p.table.numel(), sms)
+
+        def strips(launch=None):
+            corners, bp = wavefront_fill.wavefront_fill(*args, k=1, launch=launch)
+            return traceback_walk.traceback_walk(bp, corners, lens, lens, k=1,
+                                                 max_steps=2 * n)
+
+        def bands():
+            return _sweep_align_ops(*args, k=1, max_steps=2 * n)
+
+        want = bands()
+        got = strips()
+        if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+            raise AssertionError(f"lone {B} x {n} nt: strips and bands differ")
+        del got
+        shape = wavefront_segment.sweep_shape(B, C, dev)
+        t_bands = [elapsed_ms(bands), elapsed_ms(bands)]
+        t_rule = [elapsed_ms(strips), elapsed_ms(strips)]
+        print(f"[{card}] lone {B} x {n} nt, fill + walk: fill_shape W={rule.W} x "
+              f"{rule.warps} warps x {rule.blocks} blocks {fmt(t_rule)} ms; band "
+              f"route ({shape[0]} blocks of {shape[1]} threads) {fmt(t_bands)} ms; "
+              f"equal ops and scores", flush=True)
+        for W, warps in LONE_SHAPES:
+            n_st = wavefront_fill.stripes(C, W)
+            blocks = min(-(-n_st // warps), sms // B)
+            launch = wavefront_fill.fill_launch(B, C, 1, W, warps, 1, blocks)
+            ms = elapsed_ms(lambda: wavefront_fill.wavefront_fill(
+                *args, k=1, launch=launch))
+            print(f"[{card}]   fill alone, W={W} x {warps} warps x {blocks} "
+                  f"blocks, {launch.passes} passes: {ms:.2f} ms", flush=True)
 
 
 if __name__ == "__main__":

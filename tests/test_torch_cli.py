@@ -463,3 +463,33 @@ def test_triplet_routes_match_jax_cli(tmp_path, monkeypatch, route):
                                    ["alignpair", "-m", "tri-mg"], "out.json")
     assert calls == ["coati_tpu.triplet_wavefront", "coati_tpu_torch.triplet_wavefront"]
     assert got_jax == got_torch and got_torch
+
+
+@pytest.mark.parametrize("form", ["--platform cpu", "--platform=cpu", "env"])
+def test_platform_cpu_matches_jax_cli(tmp_path, monkeypatch, form):
+    """--platform cpu, --platform=cpu and COATI_TPU_FORCE_PLATFORM=cpu are
+    stripped from anywhere on the command line and run the port on the CPU
+    (no --device given), with coati-tpu's bytes for the same command line;
+    --platform tpu or gpu beside --device cpu is accepted."""
+    src = tmp_path / "pair.fasta"
+    src.write_text(PAIR)
+    flag = [] if form == "env" else form.split()
+    if form == "env":
+        monkeypatch.setenv("COATI_TPU_FORCE_PLATFORM", "cpu")
+    outs = []
+    for tag, main in (("jax", jax_cli.main), ("torch", torch_cli.main)):
+        out = tmp_path / f"{tag}.fasta"
+        assert main(["alignpair", *flag, str(src), "-o", str(out)]) == 0, tag
+        outs.append(out.read_bytes())
+    assert outs[0] == outs[1] and b"CT----ATAGTG" in outs[1]
+    monkeypatch.delenv("COATI_TPU_FORCE_PLATFORM", raising=False)
+    for value in ("tpu", "gpu"):
+        out = tmp_path / f"{value}.fasta"
+        assert torch_cli.main(["alignpair", str(src), "--platform", value,
+                               "--device", "cpu", "-o", str(out)]) == 0
+        assert out.read_bytes() == outs[0]
+    assert torch_cli._apply_platform(
+        ["batch", "in.fa", "--platform", "cpu", "--device", "cuda"]) == [
+        "batch", "in.fa", "--device", "cuda"]
+    assert torch_cli._apply_platform(["genseed", "--platform=cpu", "42"]) == [
+        "genseed", "42"]

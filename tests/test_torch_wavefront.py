@@ -198,7 +198,9 @@ def test_plain_walk_matches_xla(mg94_table, k, form):
 
 def test_wrappers_on_cpu_take_plain_path(mg94_table):
     """On CPU tensors the kernel wrappers run the plain versions and launch
-    nothing; their counters stay at 0."""
+    nothing; their counters stay at 0. The fill returns wavefront_plain's
+    stack in row layout, and the walk over it equals traceback_plain over
+    the diagonal stack."""
     k = 1
     aseq, bseq, la, lb = _batch(3, k, B=4, na=(12, 36), nb=(12, 36))
     gc = gap_consts_array(GapParams(len=k))
@@ -206,13 +208,13 @@ def test_wrappers_on_cpu_take_plain_path(mg94_table):
     fill_mod.LAUNCHES = walk_mod.LAUNCHES = 0
     corners, bp = fill_mod.wavefront_fill(*args, k=k)
     ref_corners, ref_bp = tw.wavefront_plain(*args, k=k)
-    assert torch.equal(bp, ref_bp)
+    assert torch.equal(bp, fill_mod.rows_from_diagonals(ref_bp, aseq.shape[1], k))
     for x, y in zip(corners, ref_corners):
         assert torch.equal(x, y)
     steps = int((la + lb).max())
     ops, score = walk_mod.traceback_walk(bp, corners, args[2], args[3], k=k,
                                          max_steps=steps)
-    ref_ops, ref_score = tw.traceback_plain(bp, corners, args[2], args[3],
+    ref_ops, ref_score = tw.traceback_plain(ref_bp, corners, args[2], args[3],
                                             k=k, max_steps=steps)
     assert torch.equal(ops, ref_ops) and torch.equal(score, ref_score)
     assert fill_mod.LAUNCHES == 0 and walk_mod.LAUNCHES == 0
