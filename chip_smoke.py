@@ -15,10 +15,15 @@ Phases, each printing lines (any failure raises, exit code non-zero):
              pairs over 4,096 slots spread over several blocks (C~6,000,
              k=1 and k=3), stripe passes through the edge buffer in one
              block and over several (forced shapes); corners, bp on every
-             true cell, ops and scores bit-equal; and a gap length above the
-             fill kernel's (k=9), which fused_align_ops must send through the
-             sweep and the segment walk, equal to the plain fill and walk.
-             Segment kernel, score kernel and segment walk: k=1, 3 and 5,
+             true cell, ops and scores bit-equal; in every such case the
+             score kernel on the strip route (score_shape's launch, or the
+             forced shape), its corners bit-equal to plain and to the fill's;
+             and a gap length above the fill kernel's (k=9), which
+             fused_align_ops must send through the sweep and the segment
+             walk, equal to the plain fill and walk, and the score kernel
+             through the sweep, equal to plain.
+             Segment kernel, score kernel forced onto each route of the
+             sweep, and segment walk (a warp a pair, windows): k=1, 3 and 5,
              ragged groups with IUPAC and gap codes, a segment length that
              does not divide the diagonals, each route of the sweep (one
              block a pair with the ring in shared or in global memory;
@@ -61,9 +66,11 @@ Phases, each printing lines (any failure raises, exit code non-zero):
              score and segment-walk kernels launched. Then one segment of
              the four-pair group at its full shape: kernel against plain, on
              the band route with no global ring; the score kernel over the
-             whole group on the band route and at the barrier, equal, timed
-             in turns; and one pair of LONGPAIR_NT nt through the CLI's alignpair: it
-             ungaps to its inputs and its score is the score kernel's.
+             whole group on the strip route, the band route and at the
+             barrier, equal, timed in turns; and one pair of LONGPAIR_NT nt
+             through the CLI's alignpair: it ungaps to its inputs and its
+             score is the score kernel's, whose strip and band routes are
+             held equal and timed in turns.
    lonepair - one LONE_NT nt pair through the CLI's alignpair and through
              batch_align: the fill and whole-stack walk launched once each
              (spread over blocks), equal to the long path's alignment.
@@ -254,7 +261,7 @@ KERNELS = {
     },
     "wavefront_score": {
         "route": "cuda",
-        "source": "coati_tpu_torch/csrc/wavefront_segment.cu",
+        "source": "coati_tpu_torch/csrc/wavefront_fill.cu",
         "replaces": "coati_tpu/kernels/wavefront_pallas.py:330",
     },
     "traceback_walk_segment": {
@@ -548,19 +555,33 @@ def check_case(dev, name, k, B, na, nb, expect, n_codes=4, G=1, seed=0,
     steps = int((la + lb).max())
     C = bseq.shape[1] + k
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    if launch is None:
+    forced = launch
+    if forced is None:
         launch = fill_mod.fill_shape(B, C, k, p.table.numel(), sms)
     else:
-        launch = fill_mod.fill_launch(B, C, k, *launch, table_len=p.table.numel())
+        launch = fill_mod.fill_launch(B, C, k, *forced, table_len=p.table.numel())
     if not expect(launch):
         raise AssertionError(f"kernel case {name}: the fill takes {launch}, "
                              f"not the route the case is for")
     args = (a, b, tla, tlb, p.table, p.gap_consts)
 
+    # the score kernel on the strip route: score_shape's launch, or the
+    # forced shape built score-only
+    if forced is None:
+        score_launch = score_mod.score_shape(B, C, k, p.table.numel(), sms)
+    else:
+        score_launch = fill_mod.fill_launch(B, C, k, *forced, table_len=p.table.numel(),
+                                            widths=fill_mod.SCORE_WIDTHS)
+    if not expect(score_launch):
+        raise AssertionError(f"kernel case {name}: the score kernel takes "
+                             f"{score_launch}, not the route the case is for")
+
     ck, bpk = fill_mod.wavefront_fill(*args, k=k, launch=launch)
     cp, bpp = fill_mod.fill_rows_plain(*args, k=k)
     opk, sk = walk_mod.traceback_walk(bpk, ck, tla, tlb, k=k, max_steps=steps)
     opp, sp = traceback_rows_plain(bpp, cp, tla, tlb, k=k, max_steps=steps)
+    sck = score_mod.wavefront_score(*args, k=k, launch=score_launch)
+    scp = score_mod.score_plain(*args, k=k)
     torch.cuda.synchronize(dev)
 
     fill_err = max(float((x - y).abs().max()) for x, y in zip(ck, cp))
@@ -575,11 +596,14 @@ def check_case(dev, name, k, B, na, nb, expect, n_codes=4, G=1, seed=0,
         bad.append("ops")
     if not torch.equal(sk, sp):
         bad.append("scores")
+    if not (torch.equal(sck, scp) and torch.equal(sck, torch.stack(cp))):
+        bad.append("score kernel corners")
     if not bool(torch.isfinite(sk).all()):
         bad.append("non-finite scores")
     if bad:
         raise AssertionError(f"kernel case {name}: {', '.join(bad)} differ "
                              f"from the plain version")
+    fill_err = max(fill_err, float((sck - scp).abs().max()))
     out = {"fill_err": fill_err, "walk_err": walk_err, "launch": launch}
     times = ""
     if timing:
@@ -607,7 +631,10 @@ def check_case(dev, name, k, B, na, nb, expect, n_codes=4, G=1, seed=0,
         f"pairs x {launch.blocks} blocks, {launch.passes} passes, table in "
         f"{'shared' if launch.table_shared else 'device'} memory: corners, bp "
         f"on {int(mask.sum())} true cells, {int((opk >= 0).sum())} ops and "
-        f"scores bit-equal to plain{times}")
+        f"scores bit-equal to plain; the score kernel in strips of "
+        f"{score_launch.W} x {score_launch.warps} warps x {score_launch.pairs} pairs "
+        f"x {score_launch.blocks} blocks, {score_launch.passes} passes: corners "
+        f"bit-equal to plain and to the fill's{times}")
     return out
 
 
@@ -636,9 +663,18 @@ def check_sweep_route(dev, k, B, na, nb, seed):
     if not (torch.equal(ops, want_ops) and torch.equal(score, want_score)):
         raise AssertionError(f"k={k}: the sweep route's ops or scores differ "
                              f"from plain")
+    reset_launch_counts()
+    sc = score_mod.wavefront_score(*args, k=k)
+    torch.cuda.synchronize(dev)
+    counts = launch_counts()
+    if (counts["wavefront_score"], counts["wavefront_fill"]) != (1, 0):
+        raise AssertionError(f"k={k}: the score kernel took {counts}")
+    if not torch.equal(sc, score_mod.score_plain(*args, k=k)):
+        raise AssertionError(f"k={k}: the score kernel's sweep route differs from plain")
     say("kernels", f"k={k} (above the fill kernel's {fill_mod.MAX_K}), B={B}: "
         f"fused_align_ops took the sweep ({took}); ops and scores bit-equal to "
-        f"the plain fill and walk")
+        f"the plain fill and walk; the score kernel's sweep route bit-equal to "
+        f"plain")
     return float((score - want_score).abs().max())
 
 
@@ -1347,23 +1383,9 @@ def _segment_cell(dev, long_pairs, aln):
             fn(bp_k, d0, entry.clone(), ops_k, k=k)
         return run
 
-    # the score kernel over the whole group on the band route and at the
-    # barrier, in turns (bands, barrier, barrier, bands): equal, and timed
-    score_launch = {several: case_launch(dev, "segment cell: score kernel",
-                                         seg_mod.sweep_shape, B, C, k, several,
-                                         table_len=p.table.numel())
-                    for several in ("bands", "barrier")}
-
-    def score_at(several):
-        return score_mod.wavefront_score(*args, k=k, launch=score_launch[several])
-
-    score_bands = score_at("bands")
-    if not torch.equal(score_bands, score_at("barrier")):
-        raise AssertionError("segment cell: the score kernel's routes differ")
-    score_ms = {"bands": [], "barrier": []}
-    for several in ("bands", "barrier", "barrier", "bands"):
-        score_ms[several].append(elapsed_ms(lambda: score_at(several), dev, 1))
-    del score_bands
+    # the score kernel over the whole group on the strip route, the band
+    # route and at the barrier, in turns: equal, and timed
+    score_ms = score_routes(dev, "segment cell", args, k, barrier=True)
 
     cells = segment_cells(la, lb, k, d0, T)
     carry_bytes = sum(t.numel() * 4 for t in carry)
@@ -1394,9 +1416,50 @@ def _segment_cell(dev, long_pairs, aln):
         f"without, plain {out['segment_plain_ms']:.1f} ms; walk of {steps} steps "
         f"{out['walk_ms']:.3f} ms, plain {out['walk_plain_ms']:.1f} ms; all "
         f"bit-equal to plain; the score kernel over the whole group, in turns: "
-        f"bands {', '.join(f'{t:.1f}' for t in score_ms['bands'])} ms, barrier "
-        f"{', '.join(f'{t:.1f}' for t in score_ms['barrier'])} ms, equal")
+        f"{score_line(score_ms)}, equal")
     return out
+
+
+def score_routes(dev, what, args, k, barrier=False):
+    """The score kernel over one group on the strip route (score_shape's
+    launch), on the sweep's band route and, with barrier, at the all-to-all
+    barrier: bit-equal corners; each timed once after a warm-up, in turns
+    (strips, bands[, barrier, barrier], bands, strips). Returns {route: [ms,
+    ms]} and the strip launch under "launch"."""
+    B, C = args[0].shape[0], args[1].shape[1] + k
+    table_len = args[4].numel()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    launches = {"strips": score_mod.score_shape(B, C, k, table_len, sms)}
+    routes = ("bands", "barrier") if barrier else ("bands",)
+    for route in routes:
+        launches[route] = case_launch(dev, f"{what}: score kernel", seg_mod.sweep_shape,
+                                      B, C, k, route, table_len=table_len)
+
+    def run(route):
+        return score_mod.wavefront_score(*args, k=k, launch=launches[route])
+
+    want = run("strips")
+    for route in routes:
+        if not torch.equal(run(route), want):
+            raise AssertionError(f"{what}: the score kernel's {route} route differs "
+                                 f"from its strip route")
+    turns = ("strips", *routes)
+    out = {t: [] for t in turns}
+    for t in (*turns, *reversed(turns)):
+        out[t].append(elapsed_ms(lambda: run(t), dev, 1))
+    out["launch"] = launches["strips"]
+    return out
+
+
+def score_line(times):
+    """score_routes' times as "strips (W x warps x blocks) a, b ms, bands
+    ...", for a line."""
+    ln = times["launch"]
+    parts = [f"strips ({ln.W} x {ln.warps} warps x {ln.blocks} blocks) "
+             f"{', '.join(f'{t:.3f}' for t in times['strips'])} ms"]
+    parts += [f"{r} {', '.join(f'{t:.3f}' for t in times[r])} ms"
+              for r in ("bands", "barrier") if r in times]
+    return "; ".join(parts)
 
 
 def bound(n_bytes, n_ops):
@@ -1545,14 +1608,13 @@ def phase_numbers(card, main_shape, main, long, score, sample, triplet, errs):
         f"{long['peak'] / 2**20:.1f} MiB")
     cell = long["cell"]
     sg = cell["score_group_ms"]
-    say("numbers", f"{tag} wavefront_score on the several-blocks route, the "
-        f"{N_LONG}-pair group whole: bands {min(sg['bands']):.3f} ms (runs "
-        f"{', '.join(f'{t:.3f}' for t in sg['bands'])}), barrier "
-        f"{min(sg['barrier']):.3f} ms (runs {', '.join(f'{t:.3f}' for t in sg['barrier'])}); "
-        f"bound {cell['score_group_bound'][0]:.3g} ms by {cell['score_group_bound'][1]}")
+    say("numbers", f"{tag} wavefront_score over the {N_LONG}-pair group whole, in "
+        f"turns: {score_line(sg)}; bound {cell['score_group_bound'][0]:.3g} ms by "
+        f"{cell['score_group_bound'][1]}")
     say("numbers", f"{tag} long phase: the same four pairs through the full-bp fill + "
         f"walk {long['full_wall']:.2f} s wall, viterbi_scores_batch over the "
-        f"phase's pairs {long['score_wall']:.2f} s wall")
+        f"phase's {long['n']} pairs {long['score_wall']:.2f} s wall in "
+        f"{long['launches']['wavefront_score']} launches")
 
     def entry(name, launches, err, ms, plain_ms, bnd):
         return {"name": name, **KERNELS[name], "launches": launches,
@@ -1871,6 +1933,13 @@ def run_longpair(dev, card, nt):
     p1, p2, wk = (timer.seconds(n) for n in
                   ("segment_pass1", "segment_bp", "traceback_walk_segment"))
     cells = len(a) * len(b)
+    enc_as, enc_bs, _, _ = _encoded([(a, b)])
+    padded = engine._pad_batch(enc_as, enc_bs, 96)
+    p = params_from_numpy(aln.subst_matrix, aln.gap, dev)
+    args = [torch.from_numpy(x).to(dev) for x in padded] + [p.table, p.gap_consts]
+    score_ms = score_routes(dev, f"{len(a)} nt pair", args, k)
+    say("longpair", f"[{card}] the score kernel over the {len(a)} nt pair, in turns: "
+        f"{score_line(score_ms)}; equal")
     say("longpair", f"[{card}] {len(a)} x {len(b)} nt through alignpair: {wall:.2f} s "
         f"wall, {timer.count('segment_bp')} segments of {T} diagonals, pass 1 "
         f"{p1:.2f} s, recompute with bp {p2:.2f} s, walk {wk * 1e3:.1f} ms "

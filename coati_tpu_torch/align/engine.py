@@ -9,7 +9,8 @@ where the native library builds the aligned strings. A pair whose backpointer st
 pass the budget of align/longseq.py goes, grouped with pairs of similar
 size, through the segmented two-pass path there. Every chunk and then every
 group is enqueued before the first result is read, so the device works
-while the host pads the next chunk and builds strings.
+while the host pads the next chunk and builds strings. Score-only Viterbi
+keeps no backpointers and plans its launches by bytes (score_chunks).
 """
 
 from __future__ import annotations
@@ -249,35 +250,88 @@ def viterbi_align_single(enc_a, enc_b, a_str, b_str, table, gap,
     return r.seq0, r.seq1, r.score
 
 
+# device bytes one score-only launch may hold: its inputs, corners and
+# scratch (score_launch_bytes)
+SCORE_BATCH_BYTES = 1 << 30
+
+
+def score_launch_bytes(B: int, NA: int, NB: int, k: int, spread: bool,
+                       sms: int = 132) -> int:
+    """At most the device bytes of one score-only launch of B pairs padded to
+    NA x NB: the inputs and corners, and the route's scratch. Up to
+    wavefront_fill.MAX_K the strip body's edge buffer, (NA + k) x (2k + 1)
+    f32 for each block a stripe edge may leave: one a pair, or with `spread`
+    (pairs over MULTI_BLOCK_SLOTS slots) as many blocks as the SMs hold
+    beside the pairs. Above, the sweep's ring of diagonals in device memory,
+    ring_slots(k) x 3 x (NB + k) f32 a pair. No backpointers."""
+    inputs = 4 * B * (NA + NB + 2) + 12 * B
+    if k > _fill.MAX_K:
+        return inputs + 4 * B * _seg.ring_slots(k) * 3 * (NB + k)
+    blocks = max(B, sms) if spread else B
+    return inputs + 4 * blocks * (NA + k) * (2 * k + 1)
+
+
+def score_chunks(lens_a, lens_b, k: int, quantum: int = 96,
+                 max_batch_bytes: int = SCORE_BATCH_BYTES,
+                 sms: int = 132) -> list[list[int]]:
+    """The launches of viterbi_scores_batch, planned from the lengths alone:
+    lists of pair indices, each in input order, each one launch. Pairs are
+    bucketed by padded shape, as viterbi_align_batch's, except that the
+    pairs over MULTI_BLOCK_SLOTS slots (k <= MAX_K) share a bucket with
+    those whose padded descendant is within the same power of two: the
+    strip body runs each pair's own rows and stripes, so padding to the
+    bucket's maxima costs memory only, and pairs of like size share the SMs
+    evenly. A bucket is cut where score_launch_bytes would pass
+    max_batch_bytes."""
+    buckets: dict[object, list[int]] = collections.defaultdict(list)
+    shapes = []
+    for idx, (na, nb) in enumerate(zip(lens_a, lens_b)):
+        qa = max(_round_up(na, quantum), quantum)
+        qb = max(_round_up(nb, quantum), quantum)
+        shapes.append((qa, qb))
+        spread = k <= _fill.MAX_K and qb + k > _fill.MULTI_BLOCK_SLOTS
+        buckets[("spread", qb.bit_length()) if spread else (qa, qb)].append(idx)
+    chunks = []
+    for key, idxs in buckets.items():
+        chunk: list[int] = []
+        NA = NB = 0
+        for idx in idxs:
+            qa, qb = shapes[idx]
+            na, nb = max(NA, qa), max(NB, qb)
+            if chunk and score_launch_bytes(len(chunk) + 1, na, nb, k,
+                                            key[0] == "spread", sms) > max_batch_bytes:
+                chunks.append(chunk)
+                chunk, na, nb = [], qa, qb
+            chunk.append(idx)
+            NA, NB = na, nb
+        chunks.append(chunk)
+    return chunks
+
+
 def viterbi_scores_batch(enc_as, enc_bs, table, gap, quantum: int = 96,
-                         max_batch_cells: int = 1 << 30,
+                         max_batch_bytes: int = SCORE_BATCH_BYTES,
                          device="cuda") -> np.ndarray:
-    """Score-only Viterbi (no traceback storage), O(diagonal) memory a pair:
-    the [n] f32 scores viterbi_align_batch would give, for pairs of any
-    length. Every chunk is enqueued before the first score is read."""
+    """Score-only Viterbi (no traceback storage), O(NA) device memory a
+    block boundary: the [n] f32 scores viterbi_align_batch would give, for
+    pairs of any length. Launches as score_chunks plans them; every chunk is
+    enqueued before the first score is read."""
     dev = resolve_device(device)
     k = int(gap.len)
     params = params_from_numpy(table, gap, dev)
-
-    buckets: dict[tuple[int, int], list[int]] = collections.defaultdict(list)
-    for idx, (a, b) in enumerate(zip(enc_as, enc_bs)):
-        qa = max(_round_up(len(a), quantum), quantum)
-        qb = max(_round_up(len(b), quantum), quantum)
-        buckets[(qa, qb)].append(idx)
+    sms = (torch.cuda.get_device_properties(dev).multi_processor_count
+           if dev.type == "cuda" else 132)
 
     inflight = []
-    for (qa, qb), idxs in buckets.items():
-        max_b = max(1, max_batch_cells // ((qa + k) * (qb + k)))
-        for s in range(0, len(idxs), max_b):
-            chunk = idxs[s : s + max_b]
-            aseq, bseq, la, lb = _pad_batch(
-                [enc_as[i] for i in chunk], [enc_bs[i] for i in chunk], quantum
-            )
-            params.check_codes(aseq, bseq)
-            corners = _score.wavefront_score(
-                *(upload(x, dev) for x in (aseq, bseq, la, lb)),
-                params.table, params.gap_consts, k=k)
-            inflight.append((chunk, download(corners)))
+    for chunk in score_chunks([len(a) for a in enc_as], [len(b) for b in enc_bs],
+                              k, quantum, max_batch_bytes, sms):
+        aseq, bseq, la, lb = _pad_batch(
+            [enc_as[i] for i in chunk], [enc_bs[i] for i in chunk], quantum
+        )
+        params.check_codes(aseq, bseq)
+        corners = _score.wavefront_score(
+            *(upload(x, dev) for x in (aseq, bseq, la, lb)),
+            params.table, params.gap_consts, k=k)
+        inflight.append((chunk, download(corners)))
 
     scores = np.zeros(len(enc_as), dtype=np.float32)
     for chunk, ((corners,), ev) in inflight:

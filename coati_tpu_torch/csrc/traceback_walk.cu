@@ -1,6 +1,6 @@
-// Backward traceback walk over packed backpointers: over a whole stack in
-// row layout, a warp a pair with the stack read through windows in shared
-// memory; or segment by segment for long pairs, a thread a pair.
+// Backward traceback walk over packed backpointers, a warp a pair with the
+// backpointers read through windows in shared memory: over a whole stack in
+// row layout, or segment by segment (diagonal layout) for long pairs.
 //
 // Replaces the device walk coati_tpu/align/wavefront.py:271
 // traceback_ops_impl in its while-loop form (:388-417), and the segment
@@ -13,7 +13,9 @@
 // What bounds it on an H100: the chain of dependent one-byte loads, one a
 // step, about max(la, lb) + gaps steps a pair. A stack of 64 pairs of
 // 1,056 slots is some 70 MB in row layout, more than the L2 holds, so a load
-// from the stack itself is a device-memory round trip (~0.5 us) a step.
+// from the stack itself is a device-memory round trip (~0.5 us) a step. In
+// a segment of diagonals a match step moves 2C bytes back (64 KB at 32,000
+// slots), so there too every step would be a new sector.
 //
 // Whole-stack walk (traceback_walk_kernel): a warp walks one pair. A step
 // lowers i by 1 or k, or j by 1 or k, so the S steps after (i, j) stay in
@@ -26,6 +28,12 @@
 // position and fetches it while lane 0 walks on in the current one, which
 // still holds the 2S steps after its own anchor; the fetch has S steps of
 // the walk to arrive in.
+//
+// Segment walk (traceback_walk_segment_kernel): the same rounds and windows
+// over a segment in diagonal layout, rows being diagonals. Its rows are C
+// bytes, not a multiple of 16, so each window row is copied from the
+// 16-byte boundary at or below its first cell's address and read at that
+// offset (SegWindow).
 //
 // Layout: bp [B, NA + k, Cp] uint8 as written by wavefront_fill.cu (cell
 // (i, j) at [p, i, j], Cp a multiple of 16); corners cM/cD/cI [B] f32
@@ -164,19 +172,74 @@ __global__ void traceback_walk_kernel(
   for (int q = s + lane; q < max_steps; q += 32) ops[(size_t)q * B + p] = -1;
 }
 
+// One window of a segment: diagonals [t0, ta] x columns [c0, ja] of pair
+// p's bp_seg, anchored at (ta, ja) (ta = i + j - d0), clipped at 0. Row r is
+// copied from the 16-byte boundary at or below the address of cell
+// (t0 + r, c0), so it starts at byte off(r) = (a0 + r * C) mod 16 of
+// win + r * wb, a0 the offset of cell (t0, c0)'s address.
+struct SegWindow {
+  int t0, c0, a0;
+};
+
+__device__ __forceinline__ SegWindow fetch_seg_window(
+    const uint8_t* bpp, int C, int ta, int ja, int Hd, int Hc, int wb,
+    uint8_t* win, int lane) {
+  SegWindow v;
+  v.t0 = max(ta - Hd, 0);
+  v.c0 = max(ja - Hc, 0);
+  const uint8_t* first = bpp + (size_t)v.t0 * C + v.c0;
+  v.a0 = (int)(reinterpret_cast<uintptr_t>(first) & 15);
+  const int span = ja - v.c0 + 1;     // bytes a row holds
+  const int nch = (span + 30) >> 4;   // 16-byte chunks a row may need, <= 32
+  const int per = 32 / nch;           // rows the warp copies at once
+  const int rows = ta - v.t0 + 1;
+  const int cm = C & 15;
+  const unsigned base = (unsigned)__cvta_generic_to_shared(win);
+  const int c = lane % nch;
+  for (int r = lane / nch; lane < per * nch && r < rows; r += per) {
+    const int off = (v.a0 + r * cm) & 15;
+    if (16 * c < off + span) {  // chunk c holds bytes of this row
+      const uint8_t* src = first + (size_t)r * C - off + 16 * c;
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(
+                       base + (unsigned)(r * wb + 16 * c)),
+                   "l"(src)
+                   : "memory");
+    }
+  }
+  asm volatile("cp.async.commit_group;" ::: "memory");
+  return v;
+}
+
+// A warp walks one pair. A step lowers the diagonal d = i + j by 2 and j by
+// 1 (match) or d by k and j by 0 or k (gaps), so the 2S steps after (d, j)
+// stay in diagonals [d - Hd, d] x columns [j - Hc, j], Hd = 2 max(2, k) S,
+// Hc = 2 k S: the windows and rounds of traceback_walk_kernel, in diagonal
+// layout. Shared memory a warp: two windows of (Hd + 1) rows of wb bytes,
+// and S op codes; kernels/traceback_walk.py segment_window_bytes repeats it.
 __global__ void traceback_walk_segment_kernel(
     const uint8_t* __restrict__ bp, const float* __restrict__ adj,
     const int32_t* __restrict__ lens_a, const int32_t* __restrict__ lens_b,
     float* __restrict__ score, int32_t* __restrict__ state,
     int8_t* __restrict__ ops, int B, int T, int C, int k, int d0,
-    int max_steps) {
-  const int p = blockIdx.x * blockDim.x + threadIdx.x;
+    int max_steps, int S) {
+  extern __shared__ __align__(16) uint8_t wsmem[];
+  const int Hd = 2 * max(k, 2) * S;
+  const int Hc = 2 * k * S;
+  const int wb = (Hc + 31) & ~15;  // bytes of a window row: offset + Hc + 1
+  const int win_bytes = (Hd + 1) * wb;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int p = blockIdx.x * (blockDim.x >> 5) + warp;
   if (p >= B) return;
+  const int mine = warp * (2 * win_bytes + ((S + 15) & ~15));
+  const int staged = mine + 2 * win_bytes;
+  const int cm = C & 15;
+  const uint8_t* bpp = bp + (size_t)p * T * C;
+
   int i, j, s;
   unsigned st;
   if (adj != nullptr) {  // first launch of the walk: start at the corner
     const float m = adj[p], d = adj[B + p], x = adj[2 * B + p];
-    score[p] = fmaxf(m, fmaxf(d, x));
+    if (lane == 0) score[p] = fmaxf(m, fmaxf(d, x));
     i = lens_a[p] + k - 1;
     j = lens_b[p] + k - 1;
     st = argmax_mdi(m, d, x);
@@ -187,28 +250,76 @@ __global__ void traceback_walk_segment_kernel(
     st = (unsigned)state[2 * B + p];
     s = state[3 * B + p];
   }
-  const uint8_t* bpp = bp + (size_t)p * T * C;
-  // i + j - d0 < T while the segments are walked last to first; a cell
-  // above the segment, or i, j < 0, comes only from a malformed bp stack
-  while (s < max_steps && (i > k - 1 || j > k - 1) && i >= 0 && j >= 0 &&
-         i + j >= d0 && i + j - d0 < T) {
-    const unsigned code = bpp[(size_t)(i + j - d0) * C + j];
-    ops[(size_t)s * B + p] = (int8_t)st;
-    if (st == 0) {
-      i -= 1;
-      j -= 1;
-    } else if (st == 1) {
-      i -= k;
-    } else {
-      j -= k;
-    }
-    st = (code >> (2 * st)) & 3u;
-    ++s;
+  // the walk goes on while its cell is inside the matrix and this segment;
+  // i + j - d0 >= T, or i, j < 0, comes only from a malformed bp stack
+  auto going = [&](int n) {
+    return s + n < max_steps && (i > k - 1 || j > k - 1) && i >= 0 && j >= 0 &&
+           i + j >= d0 && i + j - d0 < T;
+  };
+  bool done = !going(0);
+  SegWindow cur = {0, 0, 0};
+  if (!done) {
+    cur = fetch_seg_window(bpp, C, i + j - d0, j, Hd, Hc, wb, wsmem + mine, lane);
+    window_arrived();
   }
-  state[p] = i;
-  state[B + p] = j;
-  state[2 * B + p] = (int32_t)st;
-  state[3 * B + p] = s;
+  for (int round = 0; !done; ++round) {
+    // from the second round on, the next window is fetched at the walk's
+    // position while lane 0 walks on in the current one
+    SegWindow next = cur;
+    if (round > 0)
+      next = fetch_seg_window(bpp, C, i + j - d0, j, Hd, Hc, wb,
+                              wsmem + mine + (round & 1) * win_bytes, lane);
+    const int w = mine + ((round > 0 ? round - 1 : 0) & 1) * win_bytes;
+    int n = 0;
+    if (lane == 0) {
+      const int lim = min(S, max_steps - s);
+      // the walk moves by t = i + j - d0 and j; a step lowers i and j by at
+      // most k and t by at most max(2, k), so the first `sure` steps stay
+      // inside the matrix and the segment and need no test
+      int t = i + j - d0;
+      const int sure = min(lim, min(min(i, j) / k, t / max(k, 2) + 1));
+      const int org = w - cur.c0;  // cell (t0 + u, j) at org + u * wb + off(u) + j
+      auto step = [&]() {
+        const int u = t - cur.t0;
+        const unsigned code = wsmem[org + u * wb + ((cur.a0 + u * cm) & 15) + j];
+        wsmem[staged + n] = (uint8_t)st;
+        t -= st == 0 ? 2 : k;
+        j -= st == 0 ? 1 : (st == 1 ? 0 : k);
+        st = (code >> (2 * st)) & 3u;
+      };
+#pragma unroll 4
+      for (; n < sure; ++n) step();
+      for (; n < lim; ++n) {
+        i = t + d0 - j;
+        if (!going(n)) break;
+        step();
+      }
+      i = t + d0 - j;
+      done = !going(n);
+    }
+    __syncwarp();
+    n = __shfl_sync(0xffffffffu, n, 0);
+    i = __shfl_sync(0xffffffffu, i, 0);
+    j = __shfl_sync(0xffffffffu, j, 0);
+    st = __shfl_sync(0xffffffffu, st, 0);
+    done = __shfl_sync(0xffffffffu, (int)done, 0) != 0;
+    for (int q = lane; q < n; q += 32)
+      ops[(size_t)(s + q) * B + p] = (int8_t)wsmem[staged + q];
+    s += n;
+    if (round > 0) {
+      window_arrived();  // also: every lane has read `staged`
+      cur = next;
+    } else {
+      __syncwarp();
+    }
+  }
+  asm volatile("cp.async.wait_all;" ::: "memory");
+  if (lane == 0) {
+    state[p] = i;
+    state[B + p] = j;
+    state[2 * B + p] = (int32_t)st;
+    state[3 * B + p] = s;
+  }
 }
 
 }  // namespace
@@ -245,14 +356,26 @@ extern "C" int coati_traceback_walk(
 extern "C" int coati_traceback_walk_segment(
     const void* bp, const void* adj, const void* lens_a, const void* lens_b,
     void* score, void* state, void* ops, int B, int T, int C, int k, int d0,
-    int max_steps, void* stream) {
+    int max_steps, int S, int warps, void* stream) {
   if (B == 0) return 0;
-  const int threads = 128;
-  traceback_walk_segment_kernel<<<(B + threads - 1) / threads, threads, 0,
+  const int Hd = 2 * (k > 2 ? k : 2) * S;
+  const int wb = (2 * k * S + 31) & ~15;
+  // a window row is at most 32 copies of 16 bytes (fetch_seg_window)
+  if (S < 1 || warps < 1 || warps > 32 || wb > 32 * 16)
+    return (int)cudaErrorInvalidValue;
+  const size_t per_warp = 2 * (size_t)(Hd + 1) * wb + ((S + 15) & ~15);
+  const size_t smem = per_warp * warps;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        traceback_walk_segment_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  traceback_walk_segment_kernel<<<(B + warps - 1) / warps, 32 * warps, smem,
                                   static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(bp), static_cast<const float*>(adj),
       static_cast<const int32_t*>(lens_a), static_cast<const int32_t*>(lens_b),
       static_cast<float*>(score), static_cast<int32_t*>(state),
-      static_cast<int8_t*>(ops), B, T, C, k, d0, max_steps);
+      static_cast<int8_t*>(ops), B, T, C, k, d0, max_steps, S);
   return (int)cudaGetLastError();
 }

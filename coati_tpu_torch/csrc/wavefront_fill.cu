@@ -1,6 +1,6 @@
-// Marginal Gotoh M/D/I Viterbi fill with packed backpointers: each pair's
-// columns cut into strips, one strip a lane, swept row by row with a skew in
-// place of a barrier.
+// Marginal Gotoh M/D/I Viterbi fill with packed backpointers, or score-only:
+// each pair's columns cut into strips, one strip a lane, swept row by row
+// with a skew in place of a barrier.
 //
 // Replaces the TPU kernels coati_tpu/kernels/wavefront_pallas.py:330
 // wavefront_pallas (mode="viterbi", want_bp=True) and :704
@@ -10,6 +10,13 @@
 // (la+k) x (lb+k) matrix, and the terminal-adjusted corner scores. The
 // one-hot emission and the diagonal stacking of the TPU kernels exist for
 // the TPU's slow gathers and lane width and are not carried over.
+//
+// Score-only (entry point coati_wavefront_fill_score) replaces
+// wavefront_pallas with want_bp=False for k <= 8: the same body, compiled
+// with kBp = false, keeps no stack and stores only the corners; its state is
+// the lanes' registers, the warp rings and, when stripes leave a block, the
+// edge buffer, O(NA) a block boundary. A larger k takes the sweep
+// (csrc/wavefront_segment.cu coati_wavefront_score).
 //
 // What bounds it on an H100: the dependence of a cell on (i-1, j-1),
 // (i-k, j) and (i, j-k). A sweep by anti-diagonals pays one block barrier a
@@ -71,7 +78,7 @@
 //
 // Layout: aseq [B, NA] int32 (< rows), bseq [B, NB] int32 (< 16), lens [B]
 // int32, table [table_len / 15, 15] f32, gap_consts [4] f32 = (ng, gs, go,
-// ge). bp as above; only the cells of each pair's true (la+k) x (lb+k)
+// ge). bp as above (null when score-only); only the cells of each pair's true (la+k) x (lb+k)
 // matrix are defined (the bytes of a strip past the pair's last column, up
 // to Cp, are written with what those columns computed). corners [3, B]
 // terminal-adjusted. edge and gprog ([B, blocks_per_pair] int32 zeros) are
@@ -105,7 +112,7 @@ constexpr int max_threads(int K, int W) {
 struct FillArgs {
   const int32_t *aseq, *bseq, *lens_a, *lens_b;
   const float *table, *gap;
-  uint8_t* bp;
+  uint8_t* bp;  // null when score-only
   float* corners;
   float* edge;  // [B, blocks_per_pair, NA + k, 2k + 1], or null
   int* gprog;   // [B, blocks_per_pair] zeros, or null
@@ -163,7 +170,8 @@ __device__ __forceinline__ void store_codes(uint8_t* dst, const uint32_t (&w)[W 
   }
 }
 
-template <int K, int W>
+// kBp: store the backpointers (bp), else the corners only.
+template <int K, int W, bool kBp>
 __global__ void __launch_bounds__(max_threads(K, W))
     strip_fill_kernel(const FillArgs x) {
   static_assert(K >= 1 && W >= K && W % 4 == 0, "strips of W >= K columns");
@@ -200,7 +208,6 @@ __global__ void __launch_bounds__(max_threads(K, W))
   const int lb = x.lens_b[p];
   const int32_t* a = x.aseq + (size_t)p * x.NA;
   const int32_t* b = x.bseq + (size_t)p * x.NB;
-  uint8_t* bpp = x.bp + (size_t)p * (x.NA + K) * x.Cp;
   const int R_all = x.NA + K;  // rows of an edge buffer
   float* ring_in = rings + (size_t)(warp - 1) * kRingRows * E;  // from warp w - 1
   float* ring_out = rings + (size_t)warp * kRingRows * E;       // to warp w + 1
@@ -391,7 +398,10 @@ __global__ void __launch_bounds__(max_threads(K, W))
               rM[r][c] = M;
               rD[r][c] = D;
               rI[r][c] = I;
-              words[c / 4] |= (uint32_t)code << (8 * (c % 4));
+              if constexpr (kBp)
+                words[c / 4] |= (uint32_t)code << (8 * (c % 4));
+              else
+                (void)code;
             }
           };
           if (i >= K)
@@ -409,7 +419,10 @@ __global__ void __launch_bounds__(max_threads(K, W))
               }
             }
           }
-          if (j_base < cols) store_codes<W>(bpp + (size_t)i * x.Cp + j_base, words);
+          if constexpr (kBp) {
+            if (j_base < cols)
+              store_codes<W>(x.bp + ((size_t)p * (x.NA + K) + i) * x.Cp + j_base, words);
+          }
 #pragma unroll
           for (int q = 0; q < K; ++q) {
             eM[q] = rM[r][W - K + q];
@@ -448,10 +461,10 @@ __global__ void __launch_bounds__(max_threads(K, W))
   }
 }
 
-template <int K, int W>
+template <int K, int W, bool kBp>
 int launch(const FillArgs& x, int threads, cudaStream_t stream) {
   if (threads > max_threads(K, W)) return (int)cudaErrorInvalidValue;
-  const void* kernel = (const void*)strip_fill_kernel<K, W>;
+  const void* kernel = (const void*)strip_fill_kernel<K, W, kBp>;
   const int n_warps = threads / 32;
   const size_t smem =
       (x.table_shared ? (size_t)((x.table_len + 3) & ~3) * sizeof(float) : 0) +
@@ -470,24 +483,54 @@ int launch(const FillArgs& x, int threads, cudaStream_t stream) {
                                                       args, smem, stream);
     return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
   }
-  strip_fill_kernel<K, W><<<grid, threads, smem, stream>>>(x);
+  strip_fill_kernel<K, W, kBp><<<grid, threads, smem, stream>>>(x);
   return (int)cudaGetLastError();
 }
 
 // The (k, W) pairs the kernel is built for; kernels/wavefront_fill.py
-// STRIP_WIDTHS repeats them.
-template <int K>
+// STRIP_WIDTHS (with bp) and SCORE_WIDTHS (score-only) repeat them. The
+// score-only body is built for the widths its shape rule picks: 4, 8 and 16
+// at k = 1, one width above.
+template <int K, bool kBp>
 int launch_w(const FillArgs& x, int W, int threads, cudaStream_t s) {
   switch (W) {
     case 4:
-      if constexpr (K <= 4) return launch<K, 4>(x, threads, s);
+      if constexpr (K <= 4) return launch<K, 4, kBp>(x, threads, s);
       break;
     case 8:
-      if constexpr (K <= 2 || K >= 5) return launch<K, 8>(x, threads, s);
+      if constexpr (kBp ? (K <= 2 || K >= 5) : (K == 1 || K >= 5))
+        return launch<K, 8, kBp>(x, threads, s);
       break;
     case 16:
-      if constexpr (K <= 2) return launch<K, 16>(x, threads, s);
+      if constexpr (kBp ? K <= 2 : K == 1) return launch<K, 16, kBp>(x, threads, s);
       break;
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+template <bool kBp>
+int fill_entry(const FillArgs& x, int k, int W, void* stream) {
+  if (x.B == 0) return 0;
+  const int threads = 32 * x.warps_per_pair * x.pairs_per_block;
+  if (x.warps_per_pair < 1 || x.pairs_per_block < 1 || x.blocks_per_pair < 1 ||
+      threads > 1024 || (kBp && (x.Cp % 16 != 0 || x.Cp < x.NB + k)) ||
+      x.table_len < 1 || (x.blocks_per_pair > 1 && x.pairs_per_block != 1) ||
+      ((x.edge == nullptr) != (x.gprog == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  // a pair's stripes must stay within its warps unless the edge buffer is given
+  const int stripes = (x.NB + k + 32 * W - 1) / (32 * W);
+  if (x.edge == nullptr && (x.blocks_per_pair > 1 || stripes > x.warps_per_pair))
+    return (int)cudaErrorInvalidValue;
+  auto s = static_cast<cudaStream_t>(stream);
+  switch (k) {
+    case 1: return launch_w<1, kBp>(x, W, threads, s);
+    case 2: return launch_w<2, kBp>(x, W, threads, s);
+    case 3: return launch_w<3, kBp>(x, W, threads, s);
+    case 4: return launch_w<4, kBp>(x, W, threads, s);
+    case 5: return launch_w<5, kBp>(x, W, threads, s);
+    case 6: return launch_w<6, kBp>(x, W, threads, s);
+    case 7: return launch_w<7, kBp>(x, W, threads, s);
+    case 8: return launch_w<8, kBp>(x, W, threads, s);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -500,17 +543,6 @@ extern "C" int coati_wavefront_fill(
     void* edge, void* gprog, int B, int NA, int NB, int k, int Cp,
     int table_len, int table_shared, int W, int warps_per_pair,
     int pairs_per_block, int blocks_per_pair, void* stream) {
-  if (B == 0) return 0;
-  const int threads = 32 * warps_per_pair * pairs_per_block;
-  if (warps_per_pair < 1 || pairs_per_block < 1 || blocks_per_pair < 1 ||
-      threads > 1024 || Cp % 16 != 0 || Cp < NB + k || table_len < 1 ||
-      (blocks_per_pair > 1 && pairs_per_block != 1) ||
-      ((edge == nullptr) != (gprog == nullptr)))
-    return (int)cudaErrorInvalidValue;
-  // a pair's stripes must stay within its warps unless the edge buffer is given
-  const int stripes = (NB + k + 32 * W - 1) / (32 * W);
-  if (edge == nullptr && (blocks_per_pair > 1 || stripes > warps_per_pair))
-    return (int)cudaErrorInvalidValue;
   const FillArgs x = {
       static_cast<const int32_t*>(aseq),   static_cast<const int32_t*>(bseq),
       static_cast<const int32_t*>(lens_a), static_cast<const int32_t*>(lens_b),
@@ -519,16 +551,24 @@ extern "C" int coati_wavefront_fill(
       static_cast<float*>(edge),           static_cast<int*>(gprog),
       B, NA, NB, Cp, table_len, table_shared,
       warps_per_pair, pairs_per_block, blocks_per_pair};
-  auto s = static_cast<cudaStream_t>(stream);
-  switch (k) {
-    case 1: return launch_w<1>(x, W, threads, s);
-    case 2: return launch_w<2>(x, W, threads, s);
-    case 3: return launch_w<3>(x, W, threads, s);
-    case 4: return launch_w<4>(x, W, threads, s);
-    case 5: return launch_w<5>(x, W, threads, s);
-    case 6: return launch_w<6>(x, W, threads, s);
-    case 7: return launch_w<7>(x, W, threads, s);
-    case 8: return launch_w<8>(x, W, threads, s);
-  }
-  return (int)cudaErrorInvalidValue;
+  if (B > 0 && bp == nullptr) return (int)cudaErrorInvalidValue;
+  return fill_entry<true>(x, k, W, stream);
+}
+
+// Score-only: the terminal-adjusted corners [3, B], no backpointers.
+extern "C" int coati_wavefront_fill_score(
+    const void* aseq, const void* bseq, const void* lens_a, const void* lens_b,
+    const void* table, const void* gap_consts, void* corners, void* edge,
+    void* gprog, int B, int NA, int NB, int k, int table_len,
+    int table_shared, int W, int warps_per_pair, int pairs_per_block,
+    int blocks_per_pair, void* stream) {
+  const FillArgs x = {
+      static_cast<const int32_t*>(aseq),   static_cast<const int32_t*>(bseq),
+      static_cast<const int32_t*>(lens_a), static_cast<const int32_t*>(lens_b),
+      static_cast<const float*>(table),    static_cast<const float*>(gap_consts),
+      nullptr,                             static_cast<float*>(corners),
+      static_cast<float*>(edge),           static_cast<int*>(gprog),
+      B, NA, NB, 0, table_len, table_shared,
+      warps_per_pair, pairs_per_block, blocks_per_pair};
+  return fill_entry<false>(x, k, W, stream);
 }

@@ -1,6 +1,7 @@
 """Build the port's CUDA kernels with nvcc at first use; load them with ctypes.
 
-Every `csrc/*.cu` file is compiled into one shared library with a plain C
+Every `csrc/*.cu` file is compiled by an nvcc of its own, all started
+together, and the objects are linked into one shared library with a plain C
 interface (no PyTorch headers, so a build takes seconds). In a checkout of
 the repository the library goes to `build/coati_tpu_torch/` at its root; in
 an installed copy, or where that root is not writable, to
@@ -39,8 +40,7 @@ BUILD_DIR = build_dir()
 # the reference has (the two margin formulas) as __fmaf_rn
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
-    "--threads=0",  # the sources compile side by side
+    "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
 
 _P = ctypes.c_void_p
@@ -50,6 +50,9 @@ SIGNATURES = {
     # table_len table_shared W warps_per_pair pairs_per_block blocks_per_pair,
     # stream
     "coati_wavefront_fill": [_P] * 10 + [_I] * 11 + [_P],
+    # aseq bseq lens_a lens_b table gap corners edge gprog, B NA NB k table_len
+    # table_shared W warps_per_pair pairs_per_block blocks_per_pair, stream
+    "coati_wavefront_fill_score": [_P] * 9 + [_I] * 10 + [_P],
     # bp cM cD cI lens_a lens_b ops score, B R Cp k max_steps S warps, stream
     "coati_traceback_walk": [_P] * 8 + [_I] * 7 + [_P],
     # aseq bseq lens_a lens_b table gap ring_in corners_in ring_out corners_out
@@ -60,8 +63,9 @@ SIGNATURES = {
     # B NA NB k route blocks_per_pair band_width halo_slots table_len threads,
     # stream
     "coati_wavefront_score": [_P] * 12 + [_I] * 10 + [_P],
-    # bp adj lens_a lens_b score state ops, B T C k d0 max_steps, stream
-    "coati_traceback_walk_segment": [_P] * 7 + [_I] * 6 + [_P],
+    # bp adj lens_a lens_b score state ops, B T C k d0 max_steps S warps,
+    # stream
+    "coati_traceback_walk_segment": [_P] * 7 + [_I] * 8 + [_P],
     # aseq bseq lens_a lens_b table gap adj ring_scratch sync halo next stamps
     # mdi, B NA NB k route blocks_per_pair band_width halo_slots table_len
     # threads, stream
@@ -106,16 +110,38 @@ def build() -> tuple[Path, str]:
     out = library_path()
     if out.exists():
         return out, ""
+    nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(s) for s in sorted(CSRC.glob("*.cu"))]]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    log = res.stdout + res.stderr
-    if res.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{log}")
-    os.replace(tmp, out)
+    objs = BUILD_DIR / f"{out.stem}.{os.getpid()}.obj"
+    objs.mkdir(exist_ok=True)
+    try:
+        jobs = []
+        for src in sorted(CSRC.glob("*.cu")):
+            obj = objs / f"{src.stem}.o"
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+            jobs.append((obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        log = ""
+        failed = []
+        for obj, job in jobs:
+            log += job.communicate()[0]
+            if job.returncode != 0:
+                failed.append(obj.stem)
+        if not failed:
+            res = subprocess.run(
+                [nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
+                 *[str(obj) for obj, _ in jobs]],
+                capture_output=True, text=True)
+            log += res.stdout + res.stderr
+            if res.returncode != 0:
+                failed.append("the link")
+        if failed:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(f"nvcc failed ({', '.join(failed)}):\n{log}")
+        os.replace(tmp, out)
+    finally:
+        shutil.rmtree(objs, ignore_errors=True)
     return out, log
 
 

@@ -29,6 +29,10 @@ SMEM_BYTES = 232_448  # dynamic shared memory one H100 block may use
 # not matter.
 WINDOW_STEPS = 32
 WALK_WARPS = 2
+# S of the segment walk (a warp a pair, windows of diagonals): set by
+# sweep_shapes.py segwalk.
+SEGMENT_WINDOW_STEPS = 32
+WINDOW_ROW_BYTES = 32 * 16  # a window row is at most 32 copies of 16 bytes
 
 
 def window_steps(k: int) -> int:
@@ -43,6 +47,32 @@ def window_bytes(k: int, S: int) -> int:
     H = 2 * k * S
     wb = -(-(H + 31) // 16) * 16
     return 2 * (H + 1) * wb + -(-S // 16) * 16
+
+
+def segment_window_steps(k: int) -> int:
+    """S of the segment walk at gap length k: SEGMENT_WINDOW_STEPS at k = 1,
+    fewer at larger k, as window_steps, and no more than WALK_WARPS windows
+    of rows of WINDOW_ROW_BYTES fit in a block."""
+    S = max(4, SEGMENT_WINDOW_STEPS // k)
+    while S > 1 and (WALK_WARPS * segment_window_bytes(k, S) > SMEM_BYTES
+                     or segment_row_bytes(k, S) > WINDOW_ROW_BYTES):
+        S -= 1
+    return S
+
+
+def segment_window_bytes(k: int, S: int) -> int:
+    """Shared memory one warp of the segment walk takes: two windows of
+    2 max(2, k) S + 1 diagonals of 2kS + 16 bytes rounded up to 16 (a row is
+    copied from the 16-byte boundary below its first cell), and S staged
+    ops."""
+    Hd = 2 * max(k, 2) * S
+    return 2 * (Hd + 1) * segment_row_bytes(k, S) + -(-S // 16) * 16
+
+
+def segment_row_bytes(k: int, S: int) -> int:
+    """Bytes of a row of a segment walk's window: the 2kS + 1 columns a
+    window holds at an offset of up to 15, rounded up to 16."""
+    return -(-(2 * k * S + 16) // 16) * 16
 
 
 def _check(bp, corners, lens_a, lens_b):
@@ -85,10 +115,10 @@ def traceback_walk(bp, corners, lens_a, lens_b, *, k: int, max_steps: int,
         raise ValueError(f"rows of the stack must be a multiple of 16 bytes, got {Cp}")
     S = window_steps(k) if S is None else S
     if (S < 1 or not 1 <= warps <= 32 or warps * window_bytes(k, S) > SMEM_BYTES
-            or 2 * k * S + 31 > 32 * 16):
+            or 2 * k * S + 31 > WINDOW_ROW_BYTES):
         raise ValueError(f"{warps} warps of windows for S={S} at k={k}: over "
                          f"{SMEM_BYTES} bytes of shared memory a block, or "
-                         f"window rows over 512 bytes")
+                         f"window rows over {WINDOW_ROW_BYTES} bytes")
     ops = torch.empty((max_steps, B), dtype=torch.int8, device=bp.device)
     score = torch.empty((B,), dtype=torch.float32, device=bp.device)
     lib = _build.load()
@@ -118,7 +148,8 @@ def _check_start(start, B, dev):
             raise ValueError(f"{name} is on {t.device}, bp_seg on {dev}")
 
 
-def walk_segment(bp_seg, d0: int, state, ops, *, k: int, start=None):
+def walk_segment(bp_seg, d0: int, state, ops, *, k: int, start=None,
+                 S: int | None = None, warps: int = WALK_WARPS):
     """Advance every pair's walk through the segment bp_seg [B, T, C] uint8
     of diagonals [d0, d0 + T), as walk_segment_plain does: state [4, B] int32
     = each pair's (i, j, st, s) and ops [max_steps, B] int8 are updated in
@@ -126,8 +157,9 @@ def walk_segment(bp_seg, d0: int, state, ops, *, k: int, start=None):
 
     start: on the first launch of a walk, (adj [3, B] f32 terminal-adjusted
     corners, lens_a, lens_b): every pair starts at its corner with no op
-    written, whatever state holds. Returns (state, ops, score): score [B]
-    f32 = max of the corners with start, else None."""
+    written, whatever state holds. S: steps a window serves (default
+    segment_window_steps(k)); warps: pairs a block. Returns (state, ops,
+    score): score [B] f32 = max of the corners with start, else None."""
     global SEGMENT_LAUNCHES
     if bp_seg.dtype != torch.uint8 or bp_seg.dim() != 3 or not bp_seg.is_contiguous():
         raise ValueError(f"bp_seg must be contiguous [B, T, C] uint8, got "
@@ -147,6 +179,13 @@ def walk_segment(bp_seg, d0: int, state, ops, *, k: int, start=None):
         return walk_segment_plain(bp_seg, d0, state, ops, k=k, start=start)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
+    S = segment_window_steps(k) if S is None else S
+    if (S < 1 or not 1 <= warps <= 32
+            or warps * segment_window_bytes(k, S) > SMEM_BYTES
+            or segment_row_bytes(k, S) > WINDOW_ROW_BYTES):
+        raise ValueError(f"{warps} warps of segment windows for S={S} at k={k}: "
+                         f"over {SMEM_BYTES} bytes of shared memory a block, or "
+                         f"window rows over {WINDOW_ROW_BYTES} bytes")
     score = None
     first = (None, None, None, None)
     if start is not None:
@@ -157,7 +196,7 @@ def walk_segment(bp_seg, d0: int, state, ops, *, k: int, start=None):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.coati_traceback_walk_segment(
             bp_seg.data_ptr(), *first, state.data_ptr(), ops.data_ptr(),
-            B, T, C, k, d0, ops.shape[0], stream,
+            B, T, C, k, d0, ops.shape[0], S, warps, stream,
         )
     _build.check(rc, "walk_segment")
     SEGMENT_LAUNCHES += 1

@@ -28,6 +28,11 @@ MAX_K = 8  # largest gap length the kernel is built for
 # launch_w): W >= k columns, and no more registers than a thread can have
 STRIP_WIDTHS = {1: (4, 8, 16), 2: (4, 8, 16), 3: (4,), 4: (4,),
                 5: (8,), 6: (8,), 7: (8,), 8: (8,)}
+# the same body score-only (entry point coati_wavefront_fill_score,
+# kernels/wavefront_score.py) is built for fewer: the widths score_shape
+# picks at k = 1, one width above (k = 2 takes strips of 4)
+SCORE_WIDTHS = {1: (4, 8, 16), 2: (4,), 3: (4,), 4: (4,),
+                5: (8,), 6: (8,), 7: (8,), 8: (8,)}
 RING_ROWS = 64  # rows of a warp boundary's ring (kRingRows)
 ROW_QUANTUM = 16  # a row of the stack is a multiple of 16 bytes
 MULTI_BLOCK_SLOTS = 4096  # slots a pair above which it spreads over blocks
@@ -87,13 +92,15 @@ class FillLaunch:
 
 
 def fill_launch(B: int, C: int, k: int, W: int, warps: int, pairs: int = 1,
-                blocks: int = 1, table_len: int = 183 * 15) -> FillLaunch:
+                blocks: int = 1, table_len: int = 183 * 15, *,
+                widths=STRIP_WIDTHS) -> FillLaunch:
     """A launch of the given shape, checked; the table goes to shared memory
-    when it fits, else it is read from device memory. Raises on a shape the
-    kernel does not take."""
-    if k not in STRIP_WIDTHS or W not in STRIP_WIDTHS[k]:
+    when it fits, else it is read from device memory. widths: the strip
+    widths the kernel is built for by k (SCORE_WIDTHS for the score-only
+    body). Raises on a shape the kernel does not take."""
+    if k not in widths or W not in widths[k]:
         raise ValueError(f"strips of {W} columns at k={k}: the kernel is built "
-                         f"for {STRIP_WIDTHS.get(k, ())}")
+                         f"for {widths.get(k, ())}")
     if warps < 1 or pairs < 1 or blocks < 1 or (blocks > 1 and pairs > 1):
         raise ValueError(f"{warps} warps a pair, {pairs} pairs and {blocks} "
                          f"blocks: several blocks a pair take one pair a block")
@@ -110,8 +117,10 @@ def fill_launch(B: int, C: int, k: int, W: int, warps: int, pairs: int = 1,
 
 
 def fill_shape(B: int, C: int, k: int, table_len: int = 183 * 15,
-               sms: int = 132) -> FillLaunch:
-    """The launch the wrapper makes for B pairs of C slots at gap length k.
+               sms: int = 132, *, widths=STRIP_WIDTHS) -> FillLaunch:
+    """The launch the wrapper makes for B pairs of C slots at gap length k
+    (widths as fill_launch's; where the width below is not built, the widest
+    that is).
 
     Few pairs (fewer than 8 warps a SM at strips of 8): strips of 8 columns
     at k <= 2, of 4 at k = 3 or 4 (the only width built there), of 8 above, every stripe of a pair its own
@@ -138,19 +147,31 @@ def fill_shape(B: int, C: int, k: int, table_len: int = 183 * 15,
     spread = C > MULTI_BLOCK_SLOTS
     many = B * stripes(C, 8) >= 8 * sms
     pairs = 1
-    if many and not spread and k <= 2 and C > 512:
+    if many and not spread and 16 in widths[k] and C > 512:
         W, warps_most, pairs = 16, 1 if B >= 8 * sms else 2, 2
     else:
         W = 4 if spread or k >= 3 else 8
-        if W not in STRIP_WIDTHS[k]:
-            W = STRIP_WIDTHS[k][-1]
+        if W not in widths[k]:
+            W = widths[k][-1]
         warps_most = max_threads(k, W) // 32
     n = stripes(C, W)
     blocks = 1
     if spread:
         blocks = max(1, min(-(-n // 2), sms // max(B, 1)))
     warps = min(warps_most, -(-n // blocks))
-    return fill_launch(B, C, k, W, warps, pairs, blocks, table_len)
+    return fill_launch(B, C, k, W, warps, pairs, blocks, table_len, widths=widths)
+
+
+def edge_buffers(launch: FillLaunch, NA: int, dev):
+    """(edge, gprog) of one launch for ancestors padded to NA: the edge
+    buffer [B, blocks, NA + k, 2k + 1] f32 and its release counters [B,
+    blocks] (zeros) when stripes leave a block, else (None, None)."""
+    if not launch.needs_edge:
+        return None, None
+    B, k = launch.B, launch.k
+    return (torch.empty((B, launch.blocks, NA + k, 2 * k + 1), dtype=torch.float32,
+                        device=dev),
+            torch.zeros((B, launch.blocks), dtype=torch.int32, device=dev))
 
 
 def _check(aseq, bseq, lens_a, lens_b, table, gap_consts):
@@ -241,11 +262,7 @@ def wavefront_fill(aseq, bseq, lens_a, lens_b, table, gap_consts, *, k: int,
                          f"given B={B} C={C} k={k}")
     bp = torch.empty((B, NA + k, Cp), dtype=torch.uint8, device=dev)
     corners = torch.empty((3, B), dtype=torch.float32, device=dev)
-    edge = gprog = None
-    if launch.needs_edge:
-        edge = torch.empty((B, launch.blocks, NA + k, 2 * k + 1),
-                           dtype=torch.float32, device=dev)
-        gprog = torch.zeros((B, launch.blocks), dtype=torch.int32, device=dev)
+    edge, gprog = edge_buffers(launch, NA, dev)
     lib = _build.load()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream

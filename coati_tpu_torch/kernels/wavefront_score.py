@@ -1,11 +1,13 @@
-"""Wrapper of the score-only Viterbi kernel (csrc/wavefront_segment.cu,
-entry point coati_wavefront_score).
+"""Wrapper of the score-only Viterbi kernels: the strip body without
+backpointers (csrc/wavefront_fill.cu, entry point coati_wavefront_fill_score)
+for gap lengths up to wavefront_fill.MAX_K, the sweep (csrc/wavefront_segment.cu,
+entry point coati_wavefront_score) above.
 
 Counterpart of coati_tpu/kernels/wavefront_pallas.py wavefront_pallas with
-want_bp=False: the corner scores of every pair with O(diagonal) state and
-no backpointers. CPU tensors take the plain PyTorch version (score_plain,
-align/wavefront.py wavefront_plain in score mode); CUDA tensors launch the
-kernel or raise.
+want_bp=False: the corner scores of every pair with no backpointers and
+O(NA) state a block boundary. CPU tensors take the plain PyTorch version
+(score_plain, align/wavefront.py wavefront_plain in score mode); CUDA
+tensors launch a kernel or raise.
 """
 
 from __future__ import annotations
@@ -14,7 +16,17 @@ import torch
 
 from coati_tpu_torch.align.wavefront import wavefront_plain
 from coati_tpu_torch.kernels import _build
-from coati_tpu_torch.kernels.wavefront_fill import _check
+from coati_tpu_torch.kernels.wavefront_fill import (
+    MAX_K,
+    MULTI_BLOCK_SLOTS,
+    SCORE_WIDTHS,
+    FillLaunch,
+    _check,
+    edge_buffers,
+    fill_launch,
+    fill_shape,
+    stripes,
+)
 from coati_tpu_torch.kernels.wavefront_segment import (
     SweepLaunch,
     ptr,
@@ -23,6 +35,48 @@ from coati_tpu_torch.kernels.wavefront_segment import (
 )
 
 LAUNCHES = 0  # kernel launches made by wavefront_score
+SPREAD_WARPS = 4  # warps a block of a pair spread over blocks
+
+
+def score_shape(B: int, C: int, k: int, table_len: int = 183 * 15,
+                sms: int = 132) -> FillLaunch:
+    """The strip launch of a score-only sweep of B pairs of C slots at gap
+    length k <= MAX_K.
+
+    Up to MULTI_BLOCK_SLOTS slots, fill_shape's rule over the widths the
+    score-only body is built for (SCORE_WIDTHS). Above, with no stack to
+    hold, each pair's stripes in one pass over blocks of SPREAD_WARPS
+    warps, no more blocks than the SMs hold for the group, in the narrowest
+    strips of at least 8 columns (where built) that let them: a step of 8
+    columns costs a lane about what one of 4 does, and fewer stripes skew
+    less; a fifth warp on an SM slows the rows. Where no width fits,
+    fill_shape's rule (passes). Rows that set this (sweep_shapes.py score;
+    PERF.md section 6), H100, k = 1, ms, W x warps x blocks: one pair of
+    8,000 nt 5.76 at 8 x 4 x 8 (4 x 1 x 63: 6.46-6.62, 16 x 4 x 4: 6.41;
+    the sweep's bands 20.47); one of 16,000 11.65 at 8 x 4 x 16 (8 x 2 x
+    32: 11.72, 4 x 1-4: 12.76-13.03, 16 x 2-4: 12.89-13.01, bands 41.2);
+    two of 16,000 11.67 at 8 x 4 x 16 (4 x 2 x 63: 12.83); the four 29-32
+    knt pairs 23.08-23.13 at 8 x 4 x 32 (4 x 8 x 33: 27.0, 16 x 2-4:
+    25.7-25.8, 8 x 5 x 26: 26.9, bands 110.2-110.7); the 160,002 nt pair
+    128.3 at 16 x 4 x 79 (16 x 3 x 105: 128.5-136.1, 8 x 5 x 126: 134.0,
+    4 x 10 x 132: 146.8, bands 683.5). Below the threshold, fill_shape's
+    launches against the sweep's one block a pair: the B = 64 cell 0.67-0.68
+    at 8 x 5 (2.05); the main path's buckets in one launch, 156 nt 0.35
+    (1.79), 471 nt 1.36 (6.42), 999 nt 2.05 (7.54; 16 x 1, one pair a
+    block: 1.92), 1,500 nt 2.47 (9.31); k = 3 at 471 nt 0.43 (0.86)."""
+    if k > MAX_K:
+        raise ValueError(f"the strip body takes k <= {MAX_K}, got {k}: a "
+                         f"larger k takes the sweep")
+    if C > MULTI_BLOCK_SLOTS:
+        room = max(1, sms // max(B, 1))
+        built = SCORE_WIDTHS[k]
+        for W in [w for w in built if w >= 8] or built:
+            n = stripes(C, W)
+            if n <= SPREAD_WARPS * room:
+                warps = min(SPREAD_WARPS, n)
+                return fill_launch(B, C, k, W, warps, 1, -(-n // warps), table_len,
+                                   widths=SCORE_WIDTHS)
+    return fill_shape(B, C, k, table_len, sms, widths=SCORE_WIDTHS)
 
 
 def score_plain(aseq, bseq, lens_a, lens_b, table, gap_consts, *, k: int):
@@ -33,11 +87,13 @@ def score_plain(aseq, bseq, lens_a, lens_b, table, gap_consts, *, k: int):
 
 
 def wavefront_score(aseq, bseq, lens_a, lens_b, table, gap_consts, *, k: int,
-                    launch: SweepLaunch | None = None):
+                    launch: FillLaunch | SweepLaunch | None = None):
     """Score-only Viterbi: the terminal-adjusted corners (cM, cD, cI) as one
-    [3, B] f32 tensor; a pair's score is their maximum. launch: how to
-    launch the kernel (wavefront_segment.sweep_launch), by default
-    sweep_shape's. Preconditions as wavefront_fill's."""
+    [3, B] f32 tensor; a pair's score is their maximum. launch: a strip
+    launch (score_shape, or wavefront_fill.fill_launch with
+    widths=SCORE_WIDTHS) or a sweep launch (wavefront_segment.sweep_launch);
+    by default score_shape's for k <= MAX_K, sweep_shape's above.
+    Preconditions as wavefront_fill's."""
     global LAUNCHES
     _check(aseq, bseq, lens_a, lens_b, table, gap_consts)
     dev = aseq.device
@@ -50,18 +106,38 @@ def wavefront_score(aseq, bseq, lens_a, lens_b, table, gap_consts, *, k: int,
     C = NB + k
     adj = torch.empty((3, B), dtype=torch.float32, device=dev)
     if launch is None:
-        launch = sweep_launch(B, C, k, *sweep_shape(B, C, dev), table.numel())
-    launch.check(B, C, k, table.numel())
-    scratch = launch.buffers(dev)  # held until the kernel is launched
+        if k <= MAX_K:
+            sms = torch.cuda.get_device_properties(dev).multi_processor_count
+            launch = score_shape(B, C, k, table.numel(), sms)
+        else:
+            launch = sweep_launch(B, C, k, *sweep_shape(B, C, dev), table.numel())
     lib = _build.load()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.coati_wavefront_score(
-            aseq.data_ptr(), bseq.data_ptr(), lens_a.data_ptr(),
-            lens_b.data_ptr(), table.data_ptr(), gap_consts.data_ptr(),
-            adj.data_ptr(), *map(ptr, scratch), B, NA, NB, k, *launch.ints(),
-            launch.threads, stream,
-        )
+    if isinstance(launch, FillLaunch):
+        if (launch.B, launch.C, launch.k) != (B, C, k) or launch.W not in SCORE_WIDTHS.get(k, ()):
+            raise ValueError(f"a strip launch for B={launch.B} C={launch.C} "
+                             f"k={launch.k} W={launch.W}, given B={B} C={C} k={k} "
+                             f"(widths built: {SCORE_WIDTHS.get(k, ())})")
+        edge, gprog = edge_buffers(launch, NA, dev)
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            rc = lib.coati_wavefront_fill_score(
+                aseq.data_ptr(), bseq.data_ptr(), lens_a.data_ptr(),
+                lens_b.data_ptr(), table.data_ptr(), gap_consts.data_ptr(),
+                adj.data_ptr(), ptr(edge), ptr(gprog), B, NA, NB, k,
+                table.numel(), int(launch.table_shared), launch.W,
+                launch.warps, launch.pairs, launch.blocks, stream,
+            )
+    else:
+        launch.check(B, C, k, table.numel())
+        scratch = launch.buffers(dev)  # held until the kernel is launched
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            rc = lib.coati_wavefront_score(
+                aseq.data_ptr(), bseq.data_ptr(), lens_a.data_ptr(),
+                lens_b.data_ptr(), table.data_ptr(), gap_consts.data_ptr(),
+                adj.data_ptr(), *map(ptr, scratch), B, NA, NB, k, *launch.ints(),
+                launch.threads, stream,
+            )
     _build.check(rc, "wavefront_score")
     LAUNCHES += 1
     return adj

@@ -71,12 +71,17 @@ import torch  # noqa: E402
 
 from chip_smoke import (  # noqa: E402
     LENGTH_MIX,
+    LONG_MIX,
+    LONGPAIR_NT,
+    N_LONG,
     TRIPLET_BATCHES,
     TRIPLET_LONG_NT,
     TripletBatch,
     make_pairs,
 )
 from coati_tpu_torch import triplet_hmm  # noqa: E402
+from coati_tpu_torch.align import longseq  # noqa: E402
+from coati_tpu_torch.align.wavefront import walk_segment_plain  # noqa: E402
 from coati_tpu_torch import triplet_wavefront as tw  # noqa: E402
 from coati_tpu_torch.align.engine import _pad_batch, _sweep_align_ops  # noqa: E402
 from coati_tpu_torch.kernels import (  # noqa: E402
@@ -111,6 +116,13 @@ LONE = ((8_000, 1), (16_000, 1), (16_000, 2))  # (nt, pairs) of the lone pairs
 LONE_SHAPES = ((8, 1), (8, 2), (8, 4), (4, 1), (4, 2))  # (W, warps) spread over blocks
 WALK_S = (16, 32, 48, 64)
 WALK_WARPS = (1, 2, 4)
+# score table: (W, warps) of the strip route beside score_shape's, for a
+# bucket (one block a pair) and for pairs spread over blocks
+SCORE_SHAPES = ((4, 5), (8, 2), (8, 5), (16, 1), (16, 2))
+SCORE_SPREAD = ((4, 1), (4, 2), (4, 4), (4, 8), (8, 2), (8, 4), (8, 5), (16, 2),
+                (16, 3), (16, 4))
+SEGWALK_S = (16, 32, 64)
+SEGWALK_WARPS = (1, 2)
 
 
 def elapsed_ms(fn, reps: int = 2) -> float:
@@ -266,10 +278,10 @@ def triplet_table(dev, card):
 
 
 def main(argv=None) -> int:
-    names = {"segment", "forward", "triplet", "fill"}
+    names = {"segment", "forward", "triplet", "fill", "score", "segwalk"}
     tables = set(sys.argv[1:] if argv is None else argv) or names
     if tables - names:
-        raise SystemExit("sweep_shapes: tables are segment, forward, triplet, fill")
+        raise SystemExit("sweep_shapes: tables are " + ", ".join(sorted(names)))
     if not torch.cuda.is_available():
         raise SystemExit("sweep_shapes: needs a CUDA device")
     dev = torch.device("cuda:0")
@@ -278,6 +290,10 @@ def main(argv=None) -> int:
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip().splitlines()[0].strip()
     print(card, flush=True)
+    if "score" in tables:
+        score_table(dev, card)
+    if "segwalk" in tables:
+        segwalk_table(dev, card)
     if "fill" in tables:
         fill_table(dev, card)
     if "triplet" in tables:
@@ -348,7 +364,8 @@ def segment_table(dev, card):
         skew_line(card, dev, B, n, d0, launch, chosen,
                   lambda lnch: segment(carry, lnch, want_carry=False))
         del want_bp, want_ring, want_corners, carry
-        ms = elapsed_ms(lambda: wavefront_score.wavefront_score(*args, k=1))
+        ms = elapsed_ms(lambda: wavefront_score.wavefront_score(
+            *args, k=1, launch=launch(chosen)))
         print(f"[{card}] {B} x {n} nt, chosen {chosen[0]} x {chosen[1]}, "
               f"{launch(chosen).route}: score-only sweep "
               f"{ms:.1f} ms = {B * n * n / ms / 1e6:.2f} Gcells/s, "
@@ -527,6 +544,148 @@ def lone_table(dev, card, p, sms):
                 *args, k=1, launch=launch))
             print(f"[{card}]   fill alone, W={W} x {warps} warps x {blocks} "
                   f"blocks, {launch.passes} passes: {ms:.2f} ms", flush=True)
+
+
+def long_cases():
+    """(name, encoded ancestors, descendants): the four 29-32 knt pairs of
+    chip_smoke.py's long phase (seed 1) and its 160,002 nt pair (seed 3)."""
+    for name, pairs in (
+            (f"{N_LONG} x 29-32 knt", make_pairs(N_LONG, np.random.default_rng(1),
+                                                 length_mix=LONG_MIX)),
+            (f"1 x {LONGPAIR_NT} nt", make_pairs(1, np.random.default_rng(3),
+                                                 length_mix=[(LONGPAIR_NT, 1.0)]))):
+        enc = [encode_marginal(a, b) for a, b in pairs]
+        yield name, [e[0] for e in enc], [e[1] for e in enc]
+
+
+def score_table(dev, card):
+    """Score-only Viterbi: the strip route (score_shape's launch and others)
+    against the sweep's (sweep_shape's: one block a pair, or bands), each
+    strip launch held bit-equal to the sweep's corners: the B = 64 cell, one
+    launch of each bucket of the main path's mix and k = 3 (bucket_chunks),
+    lone pairs of 8,000 and 16,000 nt (and two of 16,000), the four 29-32
+    knt pairs as viterbi_scores_batch pads them, and the 160,002 nt pair. score_shape's launch and the sweep in turns (strips,
+    sweep, sweep, strips); CUDA events, mean of 2 launches after a warm-up."""
+    aln = alignment_params()
+    p = params_from_numpy(aln.subst_matrix, aln.gap, dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for name, k, args, _ in bucket_chunks(dev, p):
+        if k != 1:
+            pk = params_from_numpy(alignment_params(gap_len=k).subst_matrix,
+                                   alignment_params(gap_len=k).gap, dev)
+            args = (*args[:4], pk.table, pk.gap_consts)
+        score_row(dev, card, name, k, args, sms, SCORE_SHAPES)
+    for n, B in LONE:
+        rng = np.random.default_rng(n + B)
+        a = torch.from_numpy(rng.integers(0, 183, (B, n)).astype(np.int32)).to(dev)
+        b = torch.from_numpy(rng.integers(0, 4, (B, n)).astype(np.int32)).to(dev)
+        lens = torch.full((B,), n, dtype=torch.int32, device=dev)
+        score_row(dev, card, f"lone {B} x {n} nt", 1, (a, b, lens, lens, p.table,
+                                                        p.gap_consts), sms, SCORE_SPREAD)
+    for name, enc_as, enc_bs in long_cases():
+        aseq, bseq, la, lb = _pad_batch(enc_as, enc_bs, 96)
+        args = [torch.from_numpy(x).to(dev) for x in (aseq, bseq, la, lb)]
+        score_row(dev, card, name, 1, (*args, p.table, p.gap_consts), sms,
+                  SCORE_SPREAD)
+
+
+def score_row(dev, card, name, k, args, sms, shapes):
+    B, C = args[0].shape[0], args[1].shape[1] + k
+    table_len = args[4].numel()
+    rule = wavefront_score.score_shape(B, C, k, table_len, sms)
+    sweep_shape = wavefront_segment.sweep_shape(B, C, dev)
+    sweep = wavefront_segment.sweep_launch(B, C, k, *sweep_shape, table_len)
+    launches = {"strips": rule, "sweep": sweep}
+
+    def run(launch):
+        return wavefront_score.wavefront_score(*args, k=k, launch=launch)
+
+    want = run(sweep)
+    if not torch.equal(run(rule), want):
+        raise AssertionError(f"score {name}: score_shape's strips differ from the sweep")
+    times = in_turns(("strips", "sweep"), lambda t: run(launches[t]))
+    print(f"[{card}] score, {name}: B={B} C={C} k={k}; score_shape W={rule.W} x "
+          f"{rule.warps} warps x {rule.pairs} pairs x {rule.blocks} blocks, "
+          f"{rule.passes} passes: {fmt(times['strips'])} ms; sweep {sweep.route} "
+          f"({sweep.blocks} x {sweep.threads} threads a pair): {fmt(times['sweep'])} "
+          f"ms; bit-equal", flush=True)
+    for W, warps in shapes:
+        blocks = 1
+        if rule.blocks > 1:
+            blocks = min(-(-wavefront_fill.stripes(C, W) // warps), max(1, sms // B))
+        try:
+            launch = wavefront_fill.fill_launch(
+                B, C, k, W, warps, 1, blocks, table_len=table_len,
+                widths=wavefront_fill.SCORE_WIDTHS)
+        except ValueError as e:
+            print(f"[{card}]   W={W} x {warps} warps x {blocks} blocks: not taken "
+                  f"({e})", flush=True)
+            continue
+        if launch == rule:
+            continue
+        if not torch.equal(run(launch), want):
+            raise AssertionError(f"score {name} W={W} x {warps} x {blocks}: differs "
+                                 f"from the sweep")
+        print(f"[{card}]   W={W} x {warps} warps x {blocks} blocks, {launch.passes} "
+              f"passes: bit-equal; {elapsed_ms(lambda: run(launch)):.3f} ms", flush=True)
+
+
+def segwalk_table(dev, card):
+    """The segment walk at S steps a window and warps a block: the middle
+    segment of the four 29-32 knt pairs' group and of the 160,002 nt pair,
+    as the long path cuts them (its backpointers recomputed from the carry
+    of a score-only sweep down to it), each pair's walk entering at the
+    segment's top near the main diagonal; every S equal op for op and state
+    for state to the plain walk. CUDA events, mean of 5 launches after a
+    warm-up."""
+    aln = alignment_params()
+    p = params_from_numpy(aln.subst_matrix, aln.gap, dev)
+    k = 1
+    for name, enc_as, enc_bs in long_cases():
+        aseq, bseq, la, lb = longseq._pad_group(enc_as, enc_bs)
+        a, b, tla, tlb = (torch.from_numpy(x).to(dev) for x in (aseq, bseq, la, lb))
+        args = (a, b, tla, tlb, p.table, p.gap_consts)
+        B, NA = aseq.shape
+        C = bseq.shape[1] + k
+        Dtot = NA + bseq.shape[1] + 2 * k - 1
+        T = min(Dtot, longseq.seg_diagonals_for(B, C))
+        d0 = (-(-Dtot // T)) // 2 * T
+        _, _, carry = wavefront_segment.wavefront_segment(
+            *args, wavefront_segment.empty_carry(B, C, k, dev), 0, k=k, n_steps=d0,
+            want_bp=False)
+        _, bp, _ = wavefront_segment.wavefront_segment(
+            *args, carry, d0, k=k, n_steps=T, want_bp=True, want_carry=False)
+        del carry
+        d_top = d0 + T - 1
+        j0 = torch.minimum(torch.full_like(tlb, d_top // 2), tlb + (k - 1))
+        entry = torch.stack([d_top - j0, j0, torch.zeros_like(j0), torch.zeros_like(j0)])
+
+        def walk(fn, **kw):
+            st = entry.clone()
+            ops = torch.full((T, B), -1, dtype=torch.int8, device=dev)
+            fn(bp, d0, st, ops, k=k, **kw)
+            return st, ops
+
+        want_st, want_ops = walk(walk_segment_plain)
+        steps = int((want_ops >= 0).sum())
+        longest = int((want_ops >= 0).sum(0).max())
+        print(f"[{card}] segment walk, {name}: B={B} C={C} d0={d0} T={T}, {steps} "
+              f"steps over the pairs", flush=True)
+        for S in SEGWALK_S:
+            for warps in SEGWALK_WARPS:
+                got_st, got_ops = walk(traceback_walk.walk_segment, S=S, warps=warps)
+                if not (torch.equal(got_st, want_st) and torch.equal(got_ops, want_ops)):
+                    raise AssertionError(f"segment walk {name} S={S} x {warps}: "
+                                         f"differs from the plain walk")
+                mark = (" (the default)" if (S, warps) == (
+                    traceback_walk.segment_window_steps(k), traceback_walk.WALK_WARPS)
+                    else "")
+                ms = elapsed_ms(lambda: walk(traceback_walk.walk_segment, S=S,
+                                             warps=warps), 5)
+                print(f"[{card}]   S={S} x {warps} warps a block{mark}: equal; "
+                      f"{ms:.4f} ms = {ms * 1e6 / longest:.0f} ns a step of the "
+                      f"longest walk's {longest}", flush=True)
+        del bp
 
 
 if __name__ == "__main__":

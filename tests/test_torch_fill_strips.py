@@ -20,7 +20,8 @@ which none can move is a deadlock. Every register, ring slot and edge entry not 
 written reads as NaN, so a cell that read anything it should not would
 differ. The result must be bit-equal to wavefront_plain (rows_from_diagonals
 of its stack) and to XLA:CPU (coati_tpu/align/wavefront.py) on every true
-cell's backpointer byte and on the corners.
+cell's backpointer byte and on the corners. With want_bp=False it follows
+the score-only body (kBp = false): the same traversal, no stack written.
 
 window_walk follows the walk kernel: windows of 2kS rows and columns above
 and left of an anchor, the next one anchored where the walk stands after
@@ -111,7 +112,7 @@ class Pair:
     def __init__(self, a, b, la, lb, k, launch, NA, bp, corners, p, table, gc):
         self.a, self.b, self.k, self.launch = a, b, k, launch
         self.rows, self.cols, self.lb = int(la) + k, int(lb) + k, int(lb)
-        self.bp, self.corners, self.p = bp, corners, p
+        self.bp, self.corners, self.p = bp, corners, p  # bp None: score-only
         self.table, self.gc = table.reshape(-1), gc
         E = 2 * k + 1
         U = launch.warps * launch.blocks
@@ -270,8 +271,9 @@ class Worker:
                 o = kk
             for q, v in enumerate((M, D, I)):
                 reg[r, q, :, c] = torch.where(live, v, reg[r, q, :, c])
-            store = live & (self.j_base < pr.cols)
-            pr.bp[pr.p, i[store], j[store]] = bp[store]
+            if pr.bp is not None:
+                store = live & (self.j_base < pr.cols)
+                pr.bp[pr.p, i[store], j[store]] = bp[store]
             hit = live & corner & (j == pr.cols - 1)
             if bool(hit.any()):
                 lane = int(torch.nonzero(hit)[0])
@@ -284,12 +286,15 @@ class Worker:
         self.e[2, :, 0] = torch.where(live, reg[r, 1, :, W - 1], self.e[2, :, 0])
 
 
-def strip_fill(aseq, bseq, la, lb, table, gc, *, k, launch):
+def strip_fill(aseq, bseq, la, lb, table, gc, *, k, launch, want_bp=True):
     """The strip kernel's fill of every pair: (corners [3, B] adjusted, bp
-    [B, NA + k, Cp] in row layout); bytes no strip writes stay 0."""
+    [B, NA + k, Cp] in row layout); bytes no strip writes stay 0. want_bp
+    False: the score-only body, bp None."""
     B, NA = aseq.shape
     C = bseq.shape[1] + k
-    bp = torch.zeros((B, NA + k, fill_mod.row_stride(C)), dtype=torch.uint8)
+    bp = None
+    if want_bp:
+        bp = torch.zeros((B, NA + k, fill_mod.row_stride(C)), dtype=torch.uint8)
     corners = torch.full((3, B), NAN)
     rng = np.random.default_rng(B * 1000 + C)
     for p in range(B):

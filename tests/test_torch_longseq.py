@@ -247,7 +247,7 @@ def test_scores_batch_matches_jax_and_the_alignments(mg94_table, k):
     np.testing.assert_array_equal(
         got, np.array([r.score for r in aligned], dtype=np.float32))
     split = torch_engine.viterbi_scores_batch(enc_as, enc_bs, mg94_table, gap,
-                                              device="cpu", max_batch_cells=5_000)
+                                              device="cpu", max_batch_bytes=5_000)
     np.testing.assert_array_equal(split, want)
 
 
