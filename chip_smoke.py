@@ -41,8 +41,11 @@ Phases, each printing lines (any failure raises, exit code non-zero):
              the corners and every M, D, I of each pair's rectangle within
              FWD_ATOL + FWD_RTOL * |value| of plain (the largest absolute
              and relative difference printed); the walk on the kernel's
-             matrices and fixed uniforms: op streams equal, scores within
-             SCORE_ATOL + SCORE_RTOL * |score|.
+             matrices and fixed uniforms, at walk_shape's windows, at a
+             forced small S and at one thread a sample: op streams equal,
+             scores within SCORE_ATOL + SCORE_RTOL * |score|; the window
+             layout's size in kernels/sample_walk.py equal to the library's
+             at walk_shape's shape for k = 1-20.
 4. main    - the batch verb's batch_align over 10,000 synthetic mar-mg
              pairs (make_pairs and the length mix below, seed 0), run twice;
              then WARM_RUNS warm runs are timed; the launch counters are reset
@@ -85,8 +88,10 @@ Phases, each printing lines (any failure raises, exit code non-zero):
              largest adjusted corner against native.forward_score, the
              Forward kernel against its plain version over the whole
              matrix, all 200 walks again by the plain walk on the run's own
-             matrices and uniforms. Then the native route on the card's
-             host: a 999 nt pair, 1,000 samples, native.sample_anchor beside.
+             matrices and uniforms; the walk timed at its windows and, in
+             turns, at one thread a sample (the body before windows). Then
+             the native route on the card's host: a 999 nt pair, 1,000
+             samples, native.sample_anchor beside.
 8. msa     - the CLI's msa over a synthetic tree of 1,000 leaves of ~1,500
              nt with as many different distances to the reference (1,000
              stacked tables): every row ungaps to its sequence; a 12-leaf
@@ -96,8 +101,11 @@ Phases, each printing lines (any failure raises, exit code non-zero):
 9. triplet - the codon triplet models. Kernels: the forward rows
              (triplet_rows) and the walk (triplet_walk) against their plain
              versions on the card, tolerance 0: ragged batches with N,
-             tri-ecm, one pair, rows wider than a block's tile, the carry
-             form from a checkpoint with and without the grid, the walk whole
+             tri-ecm, one pair, rows wider than a block's tile, the rows at
+             the shape rows_shape picks and at forced shapes (2-4 bands of
+             32 or 64 threads, rings of 1-8 slots, one band without the
+             entry-cost table), the carry form from a checkpoint with and
+             without the grid at each of them, the walk whole
              and in segments with a ragged last one, on the plain rows and on
              the kernel's own (whose cells outside the pairs are
              uninitialized). Path: batch_align -m tri-mg over 64 pairs of 999
@@ -236,6 +244,8 @@ FWD_RTOL = 4e-6
 FWD_ATOL = 2e-5
 SCORE_RTOL = 4e-6
 SCORE_ATOL = 1e-4
+# the sample walk at a forced small window: (S, warps a block)
+SMALL_WINDOWS = (3, 2)
 # The band route's watchdog: a wait traps after csrc/wavefront_segment.cu
 # kStallCycles SM cycles without a move of the counter it reads, about a
 # second at an H100 SXM's top SM clock. The last of 132 bands of one pair of
@@ -494,6 +504,19 @@ def elapsed_ms(fn, dev, reps: int) -> float:
     for _ in range(reps):
         fn()
     return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def in_turns(dev, reps, *fns):
+    """Each fn timed by elapsed_ms in the order given and then in reverse
+    (a, b, b, a): a list of its two readings each."""
+    times = [[] for _ in fns]
+    for q in [*range(len(fns)), *reversed(range(len(fns)))]:
+        times[q].append(elapsed_ms(fns[q], dev, reps))
+    return times
+
+
+def mean(xs):
+    return sum(xs) / len(xs)
 
 
 # --- phase 1 ----------------------------------------------------------------
@@ -976,9 +999,15 @@ def check_walk(dev, name, mdi, enc_a, enc_b, p, n_samples, seed, corners=None):
     uniforms = torch.rand(((R - k) + (Cc - k) + 1, n_samples), generator=gen,
                           dtype=torch.float32, device=dev)
     args = (mdi, enc_a, enc_b, p.table, p.gap_consts, uniforms)
-    ops_k, sc_k = sample_mod.sample_walk(*args, k=k)
     ops_p, sc_p = sample_paths_plain(*args, k=k)
-    return compare_walks(name, ops_k, sc_k, ops_p, sc_p)
+    err = 0.0
+    # walk_shape's windows, small ones, and one thread a sample (the route
+    # walk_shape takes above k = 20)
+    for S, warps in (sample_mod.walk_shape(k), SMALL_WINDOWS, (0, 1)):
+        ops_k, sc_k = sample_mod.sample_walk(*args, k=k, S=S, warps=warps)
+        shape = f"windows of {S} steps x {warps} warps" if S else "one thread a sample"
+        err = max(err, compare_walks(f"{name}, {shape}", ops_k, sc_k, ops_p, sc_p))
+    return err
 
 
 def compare_walks(name, ops_k, sc_k, ops_p, sc_p):
@@ -1061,6 +1090,19 @@ def phase_sample_kernels(dev):
         ("wide group of wide descendants, k=3", 3, 67, (90, 150), (4900, 5100),
          "global", 26),
     ]
+    # the window route's shared memory as the wrapper counts it and as the
+    # kernel's library does, at every shape walk_shape picks
+    lib, table_len = _build.load(), sample_mod.TABLE_LEN
+    for k in range(1, 21):
+        S, warps = sample_mod.walk_shape(k)
+        mine = sample_mod.table_bytes(table_len) + warps * sample_mod.window_bytes(k, S)
+        theirs = lib.coati_sample_walk_smem_bytes(k, S, warps, table_len)
+        if theirs != mine:
+            raise AssertionError(f"sample walk at k={k}, S={S}, {warps} warps: "
+                                 f"{theirs} bytes of shared memory in the library, "
+                                 f"{mine} in kernels/sample_walk.py")
+    say("kernels", "sample walk: the window layout's size agrees with the library's "
+        "at walk_shape's shape for k = 1-20")
     errs = [check_forward_case(dev, *c) for c in cases]
     return max(e[0] for e in errs), max(e[1] for e in errs)
 
@@ -1785,11 +1827,15 @@ def _sample_cell(dev, a, b, seen):
                          table_len=fargs[4].numel())
     forward_ms = elapsed_ms(
         lambda: fwd_mod.wavefront_forward(*fargs, k=k, launch=launch), dev, 3)
+    # the windows and one thread a sample (the body before them), in turns
+    walk_ms, walk_old_ms = in_turns(
+        dev, 5, lambda: sample_mod.sample_walk(*wargs, k=k),
+        lambda: sample_mod.sample_walk(*wargs, k=k, S=0))
     res = {
         "forward_err": abs_err, "walk_err": walk_err,
+        "walk_ms": mean(walk_ms), "walk_turns": (walk_ms, walk_old_ms),
         "forward_ms": forward_ms,
         "forward_plain_ms": forward_plain_ms,
-        "walk_ms": elapsed_ms(lambda: sample_mod.sample_walk(*wargs, k=k), dev, 5),
         "walk_plain_ms": walk_plain_ms,
         # inputs in; 12 B a cell and the corners out
         "forward_bound": bound(in_bytes + 12 * cells + 12, cells * CELL_OPS_FORWARD),
@@ -1804,8 +1850,12 @@ def _sample_cell(dev, a, b, seen):
         f"at {launch.blocks} bands of {launch.plan.width} x {launch.threads} threads "
         f"({cells / res['forward_ms'] / 1e6:.2f} Gcells/s), plain "
         f"{res['forward_plain_ms']:.1f} ms, {cells} cells within {abs_err:.3e} "
-        f"(relative {rel_err:.3e}); walk of {steps} steps {res['walk_ms']:.3f} ms, "
-        f"plain {res['walk_plain_ms']:.1f} ms")
+        f"(relative {rel_err:.3e}); walk of {steps} steps at windows of "
+        f"{sample_mod.walk_shape(k)[0]} steps x {sample_mod.walk_shape(k)[1]} warps "
+        f"{' / '.join(f'{t:.3f}' for t in walk_ms)} ms, mean {mean(walk_ms):.3f} ms = "
+        f"{mean(walk_ms) * 1e6 / (steps / n):.1f} ns a step, one thread a sample "
+        f"{' / '.join(f'{t:.3f}' for t in walk_old_ms)} ms (in turns), plain "
+        f"{res['walk_plain_ms']:.1f} ms")
     return res
 
 
@@ -2078,14 +2128,42 @@ class TripletBatch:
         return state, ops
 
 
+def rows_grid(tb, launch=None):
+    """The full sweep of a batch by the rows kernel at `launch` (default
+    rows_shape's): (boundaries [n_cod + 1, 3, B, Cc], argmax lanes)."""
+    shape = (tb.n_cod + 1, 3, tb.B, tb.Cc)
+    grid = torch.empty(shape, dtype=torch.float32, device=tb.dev)
+    amax = torch.empty(shape, dtype=torch.uint8, device=tb.dev)
+    grid[0], amax[0] = tb.init, 0
+    trows_mod.triplet_rows(*tb.rows_args(), tb.init, keep_grid=True,
+                           grid_out=grid[1:], amax_out=amax[1:], launch=launch)
+    return grid, amax
+
+
+def rows_launches(tb):
+    """The shape rows_shape picks for a batch, and forced ones: 2 to 4 bands
+    a pair of 32 or 64 threads with rings of 1, 2 and 8 slots, and one band
+    without the entry-cost table (the body before bands)."""
+    forced = [trows_mod.rows_launch(tb.Cc, n, t, slots=f)
+              for n, t, f in ((2, 32, 1), (3, 64, 2), (4, 32, 8))]
+    old = trows_mod.rows_launch(tb.Cc, 1, trows_mod.block_threads(tb.Cc), hoist=False)
+    return [trows_mod.rows_shape(tb.B, tb.Cc, tb.dev), *forced, old]
+
+
+def launch_name(launch):
+    return (f"{launch.bands} band{'s' if launch.bands > 1 else ''} x "
+            f"{launch.threads} threads{'' if launch.hoist else ' without the table'}")
+
+
 def check_triplet_case(dev, name, model_name, pairs, seg):
     """One batch through the forward rows kernel and the walk kernel and
     through their plain versions on the card; everything compared must be
-    equal (tolerance 0). Rows and lanes over each pair's own cells: the full
-    sweep, and the carry form from a checkpoint in the middle with the grid
-    and without (the carry out alone). The walk's state and every op row:
-    whole, in segments of `seg` blocks with a ragged last one, and on the
-    kernel's own rows. Returns the largest differences (rows, walk)."""
+    equal (tolerance 0). Rows and lanes over each pair's own cells, at every
+    launch of rows_launches: the full sweep, and the carry form from a
+    checkpoint in the middle with the grid and without (the carry out
+    alone). The walk's state and every op row: whole, in segments of `seg`
+    blocks with a ragged last one, and on the kernel's own rows. Returns the
+    largest differences (rows, walk)."""
     tb = TripletBatch(_triplet_model(model_name), pairs, dev)
     if tb.n_cod % seg == 0 or tb.n_cod < 2:
         raise AssertionError(f"triplet case {name}: {tb.n_cod} codons against "
@@ -2100,36 +2178,43 @@ def check_triplet_case(dev, name, model_name, pairs, seg):
                              f"plain version")
 
     own = tb.true_cells()
-    if not torch.equal(grid_k[own], grid_p[own]):
-        bad(f"boundary rows ({int((grid_k[own] != grid_p[own]).sum())} cells)")
-    if not torch.equal(amax_k[own], amax_p[own]):
-        bad(f"argmax lanes ({int((amax_k[own] != amax_p[own]).sum())} cells)")
-    if not bool(torch.isfinite(grid_k[own]).all()):
-        raise AssertionError(f"triplet case {name}: non-finite boundary rows")
-    rows_err = float((grid_k[own] - grid_p[own]).abs().max())
-
-    # the carry form, from the plain version's boundary t0
     t0 = tb.n_cod // 2
     S = tb.n_cod - t0
     steps = (tb.lt - t0).clamp(0, S)
     args = (tb.aj[:, t0:].contiguous(), tb.dj, tb.io, steps, tb.lm, *tb.tables,
             grid_p[t0].contiguous())
-    g2, a2, out_grid = trows_mod.triplet_rows(*args, keep_grid=True)
-    none_g, none_a, out_carry = trows_mod.triplet_rows(*args, keep_grid=False)
-    _sync(dev)
     above = tb.true_cells(t0 + 1)
-    if none_g is not None or none_a is not None:
-        bad("the carry-only outputs")
-    if not (torch.equal(g2[above], grid_p[t0 + 1:][above])
-            and torch.equal(a2[above], amax_p[t0 + 1:][above])):
-        bad("rows or lanes of the carry form")
     # a pair's carry out is the boundary after its own last step
     last = torch.clamp(tb.lt, min=t0).long()
     want = grid_p[last, :, torch.arange(tb.B, device=dev)].permute(1, 0, 2)
     cols = above[0]
-    for what, out in (("with the grid", out_grid), ("alone", out_carry)):
-        if not torch.equal(out[cols], want[cols]):
-            bad(f"the carry out {what}")
+    launches = rows_launches(tb)
+    rows_err = 0.0
+    for launch in launches:
+        how = launch_name(launch)
+        if launch != launches[0]:
+            grid_k, amax_k = rows_grid(tb, launch)
+        if not torch.equal(grid_k[own], grid_p[own]):
+            bad(f"boundary rows at {how} ({int((grid_k[own] != grid_p[own]).sum())} cells)")
+        if not torch.equal(amax_k[own], amax_p[own]):
+            bad(f"argmax lanes at {how} ({int((amax_k[own] != amax_p[own]).sum())} cells)")
+        if not bool(torch.isfinite(grid_k[own]).all()):
+            raise AssertionError(f"triplet case {name}: non-finite boundary rows")
+        rows_err = max(rows_err, float((grid_k[own] - grid_p[own]).abs().max()))
+        # the carry form, from the plain version's boundary t0
+        g2, a2, out_grid = trows_mod.triplet_rows(*args, keep_grid=True, launch=launch)
+        none_g, none_a, out_carry = trows_mod.triplet_rows(*args, keep_grid=False,
+                                                           launch=launch)
+        _sync(dev)
+        if none_g is not None or none_a is not None:
+            bad("the carry-only outputs")
+        if not (torch.equal(g2[above], grid_p[t0 + 1:][above])
+                and torch.equal(a2[above], amax_p[t0 + 1:][above])):
+            bad(f"rows or lanes of the carry form at {how}")
+        for what, out in (("with the grid", out_grid), ("alone", out_carry)):
+            if not torch.equal(out[cols], want[cols]):
+                bad(f"the carry out {what} at {how}")
+    grid_k, amax_k = rows_grid(tb)  # the walk below on rows_shape's rows
 
     whole = [(0, tb.n_cod)]
     segs = [(lo, min(seg, tb.n_cod - lo)) for lo in range(0, tb.n_cod, seg)]
@@ -2149,9 +2234,10 @@ def check_triplet_case(dev, name, model_name, pairs, seg):
         raise AssertionError(f"triplet case {name}: a walk did not reach row 0")
     runs = int(((ops_p >> 2) > 1).sum())
     say("kernels", f"triplet {name}: {model_name} B={tb.B} n_cod={tb.n_cod} "
-        f"Cc={tb.Cc} ({trows_mod.block_threads(tb.Cc)} threads a block): rows and "
-        f"lanes on {int(own[:, 0].sum())} true cells, the carry form from "
-        f"boundary {t0} with and without the grid, walk state and "
+        f"Cc={tb.Cc}: rows and lanes on {int(own[:, 0].sum())} true cells at "
+        f"{', '.join(launch_name(x) for x in launches)} (the first rows_shape's), "
+        f"the carry form from boundary {t0} with and without the grid at each, "
+        f"walk state and "
         f"{ops_p.numel()} op rows ({runs} insertion runs) whole, in "
         f"{len(segs)} segments of {seg} and on the kernel's own rows: equal to plain")
     return rows_err, walk_err
@@ -2191,11 +2277,19 @@ def triplet_cell(dev, pairs):
     amax = torch.empty(shape, dtype=torch.uint8, device=dev)
     grid[0], amax[0] = tb.init, 0
 
-    def rows():
-        return trows_mod.triplet_rows(*tb.rows_args(), tb.init, keep_grid=True,
-                                      grid_out=grid[1:], amax_out=amax[1:])
+    chosen = trows_mod.rows_shape(tb.B, tb.Cc, dev)
+    threads = trows_mod.block_threads(tb.Cc)
+    shapes = (chosen, trows_mod.rows_launch(tb.Cc, 1, threads),
+              trows_mod.rows_launch(tb.Cc, 1, threads, hoist=False))
 
-    rows_ms = elapsed_ms(rows, dev, 5)
+    def rows(launch=chosen):
+        return lambda: trows_mod.triplet_rows(
+            *tb.rows_args(), tb.init, keep_grid=True, grid_out=grid[1:],
+            amax_out=amax[1:], launch=launch)
+
+    # rows_shape's bands, one band with the table, and the body before both
+    turns = in_turns(dev, 5, *(rows(x) for x in shapes))
+    rows_ms = mean(turns[0])
     (gp, ap, _), rows_plain_ms = _timed_once(lambda: trows_mod.triplet_rows_plain(
         tb.aj, tb.dj, tb.io, *tb.tables, tb.init))
     own = tb.true_cells(1)
@@ -2220,6 +2314,7 @@ def triplet_cell(dev, pairs):
     out = {
         "shape": f"B={tb.B} n_cod={tb.n_cod} Cc={tb.Cc}", "cells": cells,
         "rows_ms": rows_ms, "rows_plain_ms": rows_plain_ms, "rows_err": rows_err,
+        "rows_turns": turns,
         "walk_ms": walk_ms, "walk_plain_ms": walk_plain_ms, "walk_err": walk_err,
         # inputs and the carry in; 15 B a true cell and the carry out
         "rows_bound": bound(in_bytes + tw.GRID_CELL_BYTES * cells + 12 * row_cols,
@@ -2230,8 +2325,11 @@ def triplet_cell(dev, pairs):
                             + ops_k.numel() * 4 + 24 * tb.B,
                             cols * CELL_OPS_TRIPLET_WALK),
     }
-    say("triplet", f"cell {out['shape']}: rows kernel {rows_ms:.3f} ms over {cells} "
-        f"true cells ({cells / rows_ms / 1e6:.3f} Gcells/s), plain "
+    say("triplet", f"cell {out['shape']}: rows kernel {rows_ms:.3f} ms (mean of the turns) over {cells} "
+        f"true cells ({cells / rows_ms / 1e6:.3f} Gcells/s) at {launch_name(chosen)}; "
+        f"in turns {' / '.join(f'{t:.3f}' for t in turns[0])} ms, one band "
+        f"{' / '.join(f'{t:.3f}' for t in turns[1])}, one band without the table "
+        f"{' / '.join(f'{t:.3f}' for t in turns[2])}; plain "
         f"{rows_plain_ms:.1f} ms; walk kernel {walk_ms:.3f} ms over {blocks} "
         f"blocks and {cols} columns computed again, plain {walk_plain_ms:.1f} ms; "
         f"both equal to plain")
@@ -2367,6 +2465,10 @@ def check_triplet_wide_segment(dev, a, b, t0, S):
     args = (anc_seg, tb.dj, tb.io, steps, tb.lm, *tb.tables, carry)
     g2, a2, c2 = trows_mod.triplet_rows(*args, keep_grid=True)
     _, _, c3 = trows_mod.triplet_rows(*args, keep_grid=False)
+    # the one-band route, which the cases above hold to plain at every width
+    one = trows_mod.rows_launch(tb.Cc, 1, trows_mod.block_threads(tb.Cc))
+    g1, a1, c1 = trows_mod.triplet_rows(*args, keep_grid=True, launch=one)
+    _, _, c4 = trows_mod.triplet_rows(*args, keep_grid=False, launch=one)
     _sync(dev)
     for what, got, want in (
             ("boundary rows of the whole sweep", grid[t0 + 1:t0 + S + 1], gp),
@@ -2374,12 +2476,16 @@ def check_triplet_wide_segment(dev, a, b, t0, S):
             ("boundary rows of the carry form", g2, gp),
             ("argmax lanes of the carry form", a2, ap),
             ("the carry out with the grid", c2, cp),
-            ("the carry out alone", c3, cp)):
+            ("the carry out alone", c3, cp),
+            ("boundary rows of the carry form against one band", g2, g1),
+            ("argmax lanes of the carry form against one band", a2, a1),
+            ("the carry out with the grid against one band", c2, c1),
+            ("the carry out alone against one band", c3, c4)):
         if not torch.equal(got, want):
             raise AssertionError(f"triplet wide segment: {what} differ from the plain "
                                  f"version ({int((got != want).sum())} cells)")
     rows_err = float((g2 - gp).abs().max())
-    del g2, a2, gp, ap
+    del g2, a2, gp, ap, g1, a1
 
     above = [(lo, min(S, tb.n_cod - lo)) for lo in range(t0 + S, tb.n_cod, S)]
     state, ops = tb.walk(twalk_mod.triplet_walk, grid, amax, above)
@@ -2400,12 +2506,13 @@ def check_triplet_wide_segment(dev, a, b, t0, S):
     if int(state[0, 0]) <= 3 * t0 or int(st_p[0, 0]) != 3 * t0:
         raise AssertionError("triplet wide segment: the walk did not cross the segment")
     walk_err = float(max((st_k - st_p).abs().max(), (ops_k - ops_p).abs().max()))
-    block = trows_mod.block_threads(tb.Cc)
+    launch = trows_mod.rows_shape(1, tb.Cc, dev)
     say("kernels", f"triplet wide segment: tri-mg {len(a)} x {len(b)} nt, codon blocks "
         f"{t0}..{t0 + S - 1} from the boundary under them, Cc={tb.Cc} "
-        f"({-(-tb.Cc // block)} tiles of {block} columns): rows and lanes on "
+        f"({launch_name(launch)} of {launch.width} columns): rows and lanes on "
         f"{S * tb.Cc} cells from the whole sweep and from the carry form, the carry "
-        f"out with and without the grid, the walk's state and {6 * S} op rows "
+        f"out with and without the grid, equal to plain and to one band; the walk's "
+        f"state and {6 * S} op rows "
         f"through the segment (entered at column {j_in}, left at {int(st_p[1, 0])}): "
         f"equal to plain")
     return rows_err, walk_err

@@ -70,11 +70,17 @@ SIGNATURES = {
     # mdi, B NA NB k route blocks_per_pair band_width halo_slots table_len
     # threads, stream
     "coati_wavefront_forward": [_P] * 13 + [_I] * 10 + [_P],
-    # mdi enc_a enc_b table gap uniforms ops scores, R Cc k N n_steps, stream
-    "coati_sample_walk": [_P] * 8 + [_I] * 5 + [_P],
+    # mdi enc_a enc_b table gap uniforms ops scores, R Cc k N n_steps S warps
+    # table_len, stream
+    "coati_sample_walk": [_P] * 8 + [_I] * 8 + [_P],
+    # k S warps table_len
+    "coati_sample_walk_smem_bytes": [_I] * 4,
     # anc_cods des ins_off steps lens_m logP64 match_emit gc carry_in grid
-    # amax carry_out scratch, B m S threads, stream
-    "coati_triplet_rows": [_P] * 13 + [_I] * 4 + [_P],
+    # amax carry_out scratch records progress, B m S threads bands band_width
+    # slots hoist, stream
+    "coati_triplet_rows": [_P] * 15 + [_I] * 8 + [_P],
+    # threads
+    "coati_triplet_rows_blocks_per_sm": [_I],
     # grid amax anc_seg des ins_off logP64 match_emit gc state ops scratch,
     # B m S t_lo threads, stream
     "coati_triplet_walk": [_P] * 11 + [_I] * 5 + [_P],

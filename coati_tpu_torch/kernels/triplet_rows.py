@@ -11,6 +11,12 @@ and argmax lanes are the reference's bits.
 
 CPU tensors take triplet_rows_plain; CUDA tensors launch the kernel or raise.
 
+The kernel cuts a pair's columns into bands of whole tiles, one block a band,
+the bands running the codon steps as a pipeline (csrc/triplet_rows.cu).
+rows_shape picks bands a pair and threads a band from B, Cc and the blocks
+the card holds at once; `launch=rows_launch(...)` forces a shape. Results do
+not depend on it.
+
 Layout (the reference's): boundary rows [S, 3, B, Cc] f32 with the states in
 the order M, D, I and Cc = m + 1 columns; the argmax lanes in the same shape
 as uint8 (codon64 values, x1 * 16 + x2 * 4 + x3, are below 64: 15 bytes a cell
@@ -18,6 +24,8 @@ where int32 lanes would make it 24); a carry is one boundary, [3, B, Cc].
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
@@ -28,6 +36,10 @@ LAUNCHES = 0  # kernel launches made by triplet_rows
 # threads a block at most, of the rows kernel and of the walk kernel (the
 # most they are compiled for): one column each, a tile at a time
 THREADS = 512
+RECORD = 72  # f32 slots of a band's record of one step (csrc/triplet_rows.cu kRecord)
+# F: records of each band boundary's ring. A band runs about a step behind
+# its left neighbour, so a few slots keep back-pressure from binding.
+RECORD_SLOTS = 8
 
 
 def emissions(des_codes, match_emit):
@@ -201,9 +213,76 @@ def block_threads(Cc: int) -> int:
     return min(THREADS, -(-Cc // 32) * 32)
 
 
+@dataclasses.dataclass(frozen=True)
+class RowsLaunch:
+    """How the rows of Cc columns are launched: `bands` blocks a pair of
+    `threads` threads, each band `width` columns (whole tiles; the last band
+    may hold fewer), a ring of `slots` records a band boundary. hoist=False
+    takes the body that computes the entry costs in every column (kept for
+    timing)."""
+
+    bands: int
+    threads: int
+    width: int
+    slots: int = RECORD_SLOTS
+    hoist: bool = True
+
+    def check(self, Cc: int) -> None:
+        """Raises unless the bands cover Cc columns, each but the last
+        non-empty."""
+        if self.bands * self.width < Cc or (self.bands - 1) * self.width >= max(Cc, 1):
+            raise ValueError(f"{self.bands} bands of {self.width} columns do not "
+                             f"cut {Cc} columns")
+
+
+def rows_launch(Cc: int, bands: int, threads: int, *, slots: int = RECORD_SLOTS,
+                hoist: bool = True) -> RowsLaunch:
+    """At most `bands` bands a pair of whole tiles of `threads` threads over
+    Cc columns, as even as whole tiles allow. Raises on a shape the kernel
+    does not take."""
+    if threads < 32 or threads > THREADS or threads % 32 or bands < 1 or slots < 1:
+        raise ValueError(f"{bands} bands of {threads} threads, {slots} slots: the "
+                         f"rows take 32-{THREADS} threads a block, a multiple of "
+                         f"32, one or more bands and slots")
+    tiles = -(-Cc // threads)
+    per = -(-tiles // min(bands, tiles))
+    return RowsLaunch(-(-tiles // per), threads, per * threads, slots, hoist)
+
+
+def blocks_per_sm(threads: int) -> int:
+    """Blocks of the rows kernel one SM holds at `threads` threads."""
+    n = _build.load().coati_triplet_rows_blocks_per_sm(threads)
+    if n < 1:
+        raise RuntimeError(f"triplet_rows: no occupancy at {threads} threads")
+    return n
+
+
+def rows_shape(B: int, Cc: int, device) -> RowsLaunch:
+    """The launch of B pairs of Cc columns. Rows of one tile of
+    block_threads(Cc) columns: one band a pair. Wider: a band of one
+    256-column tile a block where all B pairs' bands fit the SMs one each;
+    else tiles of block_threads(Cc) and as many bands a pair, up to one a
+    tile, as keep all B pairs' bands on the card at once (the launch is
+    cooperative), one band a pair where B fills it. Rows that set this
+    (sweep_shapes.py triplet; PERF.md section 6), us a codon step on an
+    H100: one 15,000 nt pair 6.80 at 59 bands of 256, 6.85 at 118 of 128,
+    8.36 at 30 of 512; 16 x 2,997 nt 7.81 at 6 bands of 512 (7.12 at 24 of
+    128, three blocks an SM); 64 x 999 nt 7.43-7.65 at 2 of 512, 7.95 at 4
+    of 256."""
+    threads = block_threads(Cc)
+    tiles = -(-Cc // threads)
+    if tiles == 1:
+        return rows_launch(Cc, 1, threads)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    if B * -(-Cc // 256) <= sms:
+        return rows_launch(Cc, -(-Cc // 256), 256)
+    return rows_launch(Cc, max(1, min(tiles, sms * blocks_per_sm(threads) // B)),
+                       threads)
+
+
 def triplet_rows(anc_cods, des_codes, ins_off, steps, lens_m, logP64,
                  match_emit, gc, carry, *, keep_grid: bool = True,
-                 grid_out=None, amax_out=None):
+                 grid_out=None, amax_out=None, launch: RowsLaunch | None = None):
     """S = anc_cods.shape[1] codon steps of the forward rows from `carry`.
 
     Arguments as triplet_rows_plain's, and: steps [B] int32, the codon steps
@@ -214,7 +293,8 @@ def triplet_rows(anc_cods, des_codes, ins_off, steps, lens_m, logP64,
     Returns (boundaries, argmax lanes, carry out) as triplet_rows_plain
     with `steps`: a pair's carry out is the boundary after its last step
     (the carry in, with no step). On CUDA only pair b's first steps[b] rows
-    and lens_m[b] + 1 columns are computed: the rest is uninitialized."""
+    and lens_m[b] + 1 columns are computed: the rest is uninitialized.
+    launch: the kernel's shape (default rows_shape)."""
     global LAUNCHES
     _check(anc_cods, des_codes, ins_off, steps, lens_m, logP64, match_emit,
            gc, carry)
@@ -227,6 +307,8 @@ def triplet_rows(anc_cods, des_codes, ins_off, steps, lens_m, logP64,
                            ("amax_out", amax_out, torch.uint8)):
         if t is not None:
             _check_out(name, t, dtype, (S, 3, B, Cc), dev)
+    if launch is not None:
+        launch.check(Cc)
     if dev.type == "cpu":
         grid, amax, out = triplet_rows_plain(
             anc_cods, des_codes, ins_off, logP64, match_emit, gc, carry,
@@ -247,6 +329,12 @@ def triplet_rows(anc_cods, des_codes, ins_off, steps, lens_m, logP64,
     else:  # the rows alternate between two boundaries of scratch
         scratch = torch.empty((2, 3, B, Cc), dtype=torch.float32, device=dev)
     out = torch.empty_like(carry)
+    launch = launch or rows_shape(B, Cc, dev)
+    records = progress = None
+    if launch.bands > 1:  # each band boundary's ring, each band's steps done
+        records = torch.empty((B, launch.bands - 1, launch.slots, RECORD),
+                              dtype=torch.float32, device=dev)
+        progress = torch.zeros((B, launch.bands), dtype=torch.int32, device=dev)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     lib = _build.load()
     with torch.cuda.device(dev):
@@ -255,8 +343,9 @@ def triplet_rows(anc_cods, des_codes, ins_off, steps, lens_m, logP64,
             anc_cods.data_ptr(), des_codes.data_ptr(), ins_off.data_ptr(),
             steps.data_ptr(), lens_m.data_ptr(), logP64.data_ptr(),
             match_emit.data_ptr(), gc.data_ptr(), carry.data_ptr(),
-            ptr(grid), ptr(amax), out.data_ptr(), ptr(scratch),
-            B, des_codes.shape[1], S, block_threads(Cc), stream,
+            ptr(grid), ptr(amax), out.data_ptr(), ptr(scratch), ptr(records),
+            ptr(progress), B, des_codes.shape[1], S, launch.threads, launch.bands,
+            launch.width, launch.slots, int(launch.hoist), stream,
         )
     _build.check(rc, "triplet_rows")
     LAUNCHES += 1

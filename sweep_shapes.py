@@ -3,9 +3,10 @@
 at several launch shapes, on its two several-blocks routes in turns, and
 hold every shape to the one-block result.
 
-    python3 sweep_shapes.py [segment] [forward] [triplet] [fill]
+    python3 sweep_shapes.py [segment] [forward] [triplet] [fill] [score]
+                            [segwalk] [samplewalk]
                                  # from the repository root; needs one card;
-                                 # no argument: all four tables
+                                 # no argument: every table
 
 For square random pairs of several sizes, alone and in a group of four, and
 for several (blocks a pair, threads a block), it runs one 4,000-diagonal
@@ -50,18 +51,29 @@ CUDA events, mean of 5 launches after a warm-up (2 for the lone pairs).
 Its rows set kernels/wavefront_fill.py fill_shape and
 kernels/traceback_walk.py WINDOW_STEPS and WALK_WARPS.
 
-Last the two triplet kernels (csrc/triplet_rows.cu, csrc/triplet_walk.cu),
-which sweep a row one column a thread, a tile of the block's threads at a
-time: the two tri-mg batches chip_smoke.py aligns and the first 512 codon
-steps of its long pair, with blocks of 128 to 512 threads (the most the
-kernels are compiled for), each held equal to the 512-thread result on the
-pairs' own cells and op rows.
+Then the triplet rows kernel (csrc/triplet_rows.cu), which sweeps a row one
+column a thread, a tile of the block's threads at a time, a pair's columns
+cut into bands of tiles, one block a band: the two tri-mg batches
+chip_smoke.py aligns and the first 512 codon steps of its long pair, at
+bands a pair x threads a band (128 to 512, the most the kernel is compiled
+for; as many bands as the card holds at once), and one band without the
+entry-cost table (the body before bands), each held equal to the shape
+rows_shape picks on the pairs' own cells; the walk kernel
+(csrc/triplet_walk.cu) timed once a shape. Its rows set
+kernels/triplet_rows.py rows_shape.
+
+The samplewalk table times the sample walk (csrc/sample_walk.cu) at S steps
+a window x warps a block and at one thread a sample, on the sample verb's
+own matrices and uniforms at 9,999 nt x 200 samples, each held op for op
+and score for score to walk_shape's. Its rows set kernels/sample_walk.py
+WINDOW_STEPS and WALK_WARPS.
 """
 
 from __future__ import annotations
 
 import subprocess
 import sys
+import tempfile
 from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
@@ -74,10 +86,13 @@ from chip_smoke import (  # noqa: E402
     LONG_MIX,
     LONGPAIR_NT,
     N_LONG,
+    SAMPLE_RUNS,
     TRIPLET_BATCHES,
     TRIPLET_LONG_NT,
     TripletBatch,
     make_pairs,
+    run_sample,
+    wrappers,
 )
 from coati_tpu_torch import triplet_hmm  # noqa: E402
 from coati_tpu_torch.align import longseq  # noqa: E402
@@ -85,6 +100,7 @@ from coati_tpu_torch.align.wavefront import walk_segment_plain  # noqa: E402
 from coati_tpu_torch import triplet_wavefront as tw  # noqa: E402
 from coati_tpu_torch.align.engine import _pad_batch, _sweep_align_ops  # noqa: E402
 from coati_tpu_torch.kernels import (  # noqa: E402
+    sample_walk,
     traceback_walk,
     triplet_rows,
     triplet_walk,
@@ -106,8 +122,12 @@ FORWARD_BLOCKS = (1, 8, 16, 20, 33, 58, 132)
 # turns (sweep_launch's `several`); one block a pair runs the first alone
 TURNS = ("barrier", "bands")
 FWD_RTOL, FWD_ATOL = 4e-6, 2e-5  # chip_smoke.py's, of the Forward's values
-TRIPLET_THREADS = (512, 256, 128)  # the first is what the rest is held to
+TRIPLET_THREADS = (512, 256, 128)  # threads a band
+TRIPLET_BANDS = (2, 3, 4, 6, 8, 12, 15, 24, 30, 60, 120)  # bands a pair, at most
 TRIPLET_LONG_STEPS = 512  # codon steps of the long pair that are swept
+# samplewalk table: (S, warps a block); S = 0 is one thread a sample
+SAMPLE_SHAPES = ((0, 1), (8, 4), (16, 2), (16, 4), (16, 8), (24, 4), (32, 1),
+                 (32, 2), (32, 4), (32, 8))
 # fill table: (strips of W columns, warps a pair, pairs a block) at a bucket
 FILL_SHAPES = ((4, 5), (4, 9), (8, 2), (8, 3), (8, 5), (8, 9), (16, 1),
                (16, 2), (16, 4))
@@ -234,51 +254,96 @@ def fmt(ms, scale=1.0):
 
 
 def triplet_table(dev, card):
-    """The triplet rows and walk kernels with blocks of 128 to 512 threads (8
-    to 2 tiles a 1,000-column row), each held to the result at 512, the
-    wrappers' own choice (kernels/triplet_rows.py THREADS, which both take)."""
+    """The triplet rows kernel at bands a pair x threads a band (and the
+    body before bands: one band without the entry-cost table), each held
+    to the result at the shape rows_shape picks on the pairs' own cells; the
+    walk kernel once a shape, at its own threads."""
     model = triplet_hmm.build_triplet_model(alignment_params("tri-mg"))
     shapes = [(n, nt, seed, None) for n, nt, seed in TRIPLET_BATCHES]
     shapes.append((1, TRIPLET_LONG_NT, 13, TRIPLET_LONG_STEPS))
-    chosen = triplet_rows.THREADS
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for n, nt, seed, steps in shapes:
         pairs = make_pairs(n, np.random.default_rng(seed), length_mix=[(nt, 1.0)])
         if steps:  # the first codon steps of the ancestor against all of des
             pairs = [(a[:3 * steps], b) for a, b in pairs]
         tb = TripletBatch(model, pairs, dev)
         own = tb.true_cells()
-        whole = [(0, tb.n_cod)]
-        want = None
-        try:
-            for threads in TRIPLET_THREADS:
-                triplet_rows.THREADS = threads
-                grid, amax = tw._triplet_rows(*tb.rows_args())
-                state, ops = tb.walk(triplet_walk.triplet_walk, grid, amax, whole)
-                got = (grid[own], amax[own], state, ops)
-                if want is None:
-                    want = got
-                elif not all(torch.equal(g, w) for g, w in zip(got, want)):
-                    raise AssertionError(f"triplet {n} x {nt} nt, {threads} threads: "
-                                         f"differs from {TRIPLET_THREADS[0]} threads")
-                rows_ms = elapsed_ms(lambda: tw._triplet_rows(*tb.rows_args()))
-                walk_ms = elapsed_ms(lambda: tb.walk(triplet_walk.triplet_walk,
-                                                     grid, amax, whole))
-                block = triplet_rows.block_threads(tb.Cc)
-                tiles = -(-tb.Cc // block)
-                print(f"[{card}] triplet {n} x {nt} nt ({tb.n_cod} codon steps, "
-                      f"{tb.Cc} columns), {block} threads a block = {tiles} "
-                      f"tiles a row: equal to {TRIPLET_THREADS[0]} threads; rows "
-                      f"{rows_ms:.3f} ms = {rows_ms / tb.n_cod / tiles * 1e3:.2f} us a "
-                      f"step and tile, walk {walk_ms:.3f} ms = "
-                      f"{walk_ms / tb.n_cod * 1e3:.2f} us a block", flush=True)
-                del grid, amax, got
-        finally:
-            triplet_rows.THREADS = chosen
-        del want, own
+        chosen = triplet_rows.rows_shape(tb.B, tb.Cc, dev)
+        launches = [chosen, triplet_rows.rows_launch(
+            tb.Cc, 1, triplet_rows.block_threads(tb.Cc), hoist=False)]
+        for threads in TRIPLET_THREADS:
+            room = sms * triplet_rows.blocks_per_sm(threads) // tb.B
+            for bands in TRIPLET_BANDS:
+                launch = triplet_rows.rows_launch(tb.Cc, bands, threads)
+                if launch not in launches and launch.bands <= room:
+                    launches.append(launch)
+
+        def rows(launch):
+            shape = (tb.n_cod + 1, 3, tb.B, tb.Cc)
+            grid = torch.empty(shape, dtype=torch.float32, device=dev)
+            amax = torch.empty(shape, dtype=torch.uint8, device=dev)
+            grid[0], amax[0] = tb.init, 0
+            triplet_rows.triplet_rows(*tb.rows_args(), tb.init, keep_grid=True,
+                                      grid_out=grid[1:], amax_out=amax[1:], launch=launch)
+            return grid, amax
+
+        grid, amax = rows(chosen)
+        want = (grid[own], amax[own])
+        walk_ms = elapsed_ms(lambda: tb.walk(triplet_walk.triplet_walk, grid, amax,
+                                             [(0, tb.n_cod)]))
+        print(f"[{card}] triplet {n} x {nt} nt ({tb.n_cod} codon steps, {tb.Cc} "
+              f"columns): walk {walk_ms:.3f} ms = {walk_ms / tb.n_cod * 1e3:.2f} us a "
+              f"block", flush=True)
+        for launch in launches:
+            got = rows(launch)
+            if not (torch.equal(got[0][own], want[0]) and torch.equal(got[1][own], want[1])):
+                raise AssertionError(f"triplet {n} x {nt} nt, {launch}: differs from "
+                                     f"rows_shape's {chosen}")
+            del got
+            ms = elapsed_ms(lambda: rows(launch))
+            mark = " (rows_shape's)" if launch == chosen else ""
+            body = "" if launch.hoist else " without the entry-cost table"
+            print(f"[{card}]   rows at {launch.bands} bands of {launch.width} columns x "
+                  f"{launch.threads} threads{body}{mark}: equal; {ms:.3f} ms = "
+                  f"{ms / tb.n_cod * 1e3:.2f} us a codon step", flush=True)
+        del grid, amax, want, own
+
+
+def samplewalk_table(dev, card):
+    """The sample walk at S steps a window x warps a block, and at one
+    thread a sample (S = 0, the body before windows), on the matrices and
+    uniforms of the sample verb at 9,999 nt x 200 samples (chip_smoke.py's
+    cell), each held op for op and score for score to walk_shape's."""
+    seen = {}
+    real = sample_walk.sample_walk
+
+    def spy(*args, **kw):
+        out = real(*args, **kw)
+        seen.setdefault("walk", (args, kw["k"], out))
+        return out
+
+    nt, n, seed = SAMPLE_RUNS[0]
+    with tempfile.TemporaryDirectory() as tmp, wrappers({"sample_walk": spy}):
+        run_sample(dev, card, tmp, nt, n, seed)
+    args, k, want = seen.pop("walk")
+    steps = int((want[0] >= 0).sum())
+    chosen = sample_walk.walk_shape(k)
+    print(f"[{card}] sample walk, {nt} nt x {n} samples, k={k}: {steps} steps, "
+          f"walk_shape {chosen}", flush=True)
+    for S, warps in SAMPLE_SHAPES:
+        got = real(*args, k=k, S=S, warps=warps)
+        if not all(torch.equal(g, w) for g, w in zip(got, want)):
+            raise AssertionError(f"sample walk S={S} x {warps}: differs from "
+                                 f"walk_shape's {chosen}")
+        ms = elapsed_ms(lambda: real(*args, k=k, S=S, warps=warps), 5)
+        mark = " (walk_shape's)" if (S, warps) == chosen else ""
+        what = "one thread a sample" if S == 0 else f"S={S} x {warps} warps a block"
+        print(f"[{card}]   {what}{mark}: equal; {ms:.3f} ms = "
+              f"{ms * 1e6 / (steps / n):.1f} ns a step", flush=True)
 
 
 def main(argv=None) -> int:
-    names = {"segment", "forward", "triplet", "fill", "score", "segwalk"}
+    names = {"segment", "forward", "triplet", "fill", "score", "segwalk", "samplewalk"}
     tables = set(sys.argv[1:] if argv is None else argv) or names
     if tables - names:
         raise SystemExit("sweep_shapes: tables are " + ", ".join(sorted(names)))
@@ -298,6 +363,8 @@ def main(argv=None) -> int:
         fill_table(dev, card)
     if "triplet" in tables:
         triplet_table(dev, card)
+    if "samplewalk" in tables:
+        samplewalk_table(dev, card)
     if "segment" in tables:
         segment_table(dev, card)
     if "forward" in tables:
