@@ -103,12 +103,16 @@ Phases, each printing lines (any failure raises, exit code non-zero):
              versions on the card, tolerance 0: ragged batches with N,
              tri-ecm, one pair, rows wider than a block's tile, the rows at
              the shape rows_shape picks and at forced shapes (2-4 bands of
-             32 or 64 threads, rings of 1-8 slots, one band without the
-             entry-cost table), the carry form from a checkpoint with and
-             without the grid at each of them, the walk whole
-             and in segments with a ragged last one, on the plain rows and on
-             the kernel's own (whose cells outside the pairs are
-             uninitialized). Path: batch_align -m tri-mg over 64 pairs of 999
+             32 or 64 threads, rings of 1-8 slots, one band), the carry form
+             from a checkpoint with and without the grid at each of them,
+             the walk whole and in segments with a ragged last one, on the
+             plain rows and on the kernel's own (whose cells outside the
+             pairs are uninitialized), at the shape walk_shape picks and at
+             forced ones (passes of 1-8 columns x 32-64 threads, windows of
+             8-64 columns that insertion runs leave, the whole row, the band
+             route of 2-8 blocks a pair); the walk through one segment of the
+             long pair at walk_shape's band route and forced shapes. Path:
+             batch_align -m tri-mg over 64 pairs of 999
              nt and 16 of 2,997 nt, counters reset just before the timed run
              and read just after; a subset again with the plain versions
              standing in; tests/data/torch_triplet_golden.json held; a few
@@ -126,6 +130,7 @@ JSON object with one entry per kernel; the last line is
 from __future__ import annotations
 
 import contextlib
+import functools
 import hashlib
 import io
 import json
@@ -2143,16 +2148,47 @@ def rows_grid(tb, launch=None):
 def rows_launches(tb):
     """The shape rows_shape picks for a batch, and forced ones: 2 to 4 bands
     a pair of 32 or 64 threads with rings of 1, 2 and 8 slots, and one band
-    without the entry-cost table (the body before bands)."""
+    of block_threads (one block a pair)."""
     forced = [trows_mod.rows_launch(tb.Cc, n, t, slots=f)
               for n, t, f in ((2, 32, 1), (3, 64, 2), (4, 32, 8))]
-    old = trows_mod.rows_launch(tb.Cc, 1, trows_mod.block_threads(tb.Cc), hoist=False)
-    return [trows_mod.rows_shape(tb.B, tb.Cc, tb.dev), *forced, old]
+    one = trows_mod.rows_launch(tb.Cc, 1, trows_mod.block_threads(tb.Cc))
+    return [trows_mod.rows_shape(tb.B, tb.Cc, tb.dev), *forced, one]
 
 
 def launch_name(launch):
     return (f"{launch.bands} band{'s' if launch.bands > 1 else ''} x "
-            f"{launch.threads} threads{'' if launch.hoist else ' without the table'}")
+            f"{launch.threads} threads")
+
+
+def band_launch(Cc, cols):
+    """The band route at as many bands as a row of Cc columns takes at 64
+    columns a band, up to 8, of the fewest threads that cover it."""
+    bands = min(twalk_mod.MAX_BANDS, -(-Cc // 64))
+    threads = max(32, -(-Cc // (cols * bands * 32)) * 32)
+    return twalk_mod.walk_launch(Cc, cols, threads, bands=max(bands, 2))
+
+
+def walk_launches(tb, windows=(8, 16, 64)):
+    """The walk's launch by walk_shape for a batch, and forced ones that take
+    several passes a block (1-8 columns a thread x 32-64 threads) with
+    windows of a few columns, so that insertion runs leave them and the rows
+    left of them come from the scratch, one with the whole row, and the
+    band route (a cluster of 2-8 blocks a pair) at 1 and 2 columns a thread."""
+    forced = [twalk_mod.walk_launch(tb.Cc, c, t, w)
+              for (c, t), w in zip(((2, 64), (4, 32), (8, 64)), windows)]
+    return [twalk_mod.walk_shape(tb.B, tb.Cc, tb.dev), *forced,
+            twalk_mod.walk_launch(tb.Cc, 1, 32), band_launch(tb.Cc, 1), band_launch(tb.Cc, 2)]
+
+
+def walk_name(launch, Cc):
+    if launch.bands > 1:
+        return f"{launch.bands} bands of {launch.cols} x {launch.threads} threads"
+    return (f"{launch.cols} x {launch.threads} threads, a window of {launch.window}"
+            f"{' and the scratch' if launch.scratch(Cc) else ''}")
+
+
+def walk_at(launch):
+    return functools.partial(twalk_mod.triplet_walk, launch=launch)
 
 
 def check_triplet_case(dev, name, model_name, pairs, seg):
@@ -2220,27 +2256,34 @@ def check_triplet_case(dev, name, model_name, pairs, seg):
     segs = [(lo, min(seg, tb.n_cod - lo)) for lo in range(0, tb.n_cod, seg)]
     st_p, ops_p = tb.walk(twalk_mod.triplet_walk_plain, grid_p, amax_p, whole)
     walk_err = 0.0
-    for what, got in (
-            ("the whole walk", tb.walk(twalk_mod.triplet_walk, grid_p, amax_p, whole)),
-            ("the walk in segments", tb.walk(twalk_mod.triplet_walk, grid_p, amax_p, segs)),
-            ("the walk on the kernel's rows",
-             tb.walk(twalk_mod.triplet_walk, grid_k, amax_k, whole))):
-        _sync(dev)
-        walk_err = max(walk_err, float((got[0] - st_p).abs().max()),
-                       float((got[1] - ops_p).abs().max()))
-        if not (torch.equal(got[0], st_p) and torch.equal(got[1], ops_p)):
-            bad(f"state or op rows of {what}")
+    walks = walk_launches(tb)
+    for launch in walks:
+        how = walk_name(launch, tb.Cc)
+        fn = walk_at(launch)
+        for what, got in (
+                ("the whole walk", tb.walk(fn, grid_p, amax_p, whole)),
+                ("the walk in segments", tb.walk(fn, grid_p, amax_p, segs)),
+                ("the walk on the kernel's rows", tb.walk(fn, grid_k, amax_k, whole))):
+            _sync(dev)
+            walk_err = max(walk_err, float((got[0] - st_p).abs().max()),
+                           float((got[1] - ops_p).abs().max()))
+            if not (torch.equal(got[0], st_p) and torch.equal(got[1], ops_p)):
+                bad(f"state or op rows of {what} at {how}")
     if not bool((st_p[0] == 0).all()):
         raise AssertionError(f"triplet case {name}: a walk did not reach row 0")
-    runs = int(((ops_p >> 2) > 1).sum())
+    counts = ops_p[0::2] >> 2  # the run rows' counts
+    runs = int((counts > 1).sum())
+    left = [int((counts >= x.window).sum()) for x in walks[1:4]]
     say("kernels", f"triplet {name}: {model_name} B={tb.B} n_cod={tb.n_cod} "
         f"Cc={tb.Cc}: rows and lanes on {int(own[:, 0].sum())} true cells at "
         f"{', '.join(launch_name(x) for x in launches)} (the first rows_shape's), "
         f"the carry form from boundary {t0} with and without the grid at each, "
         f"walk state and "
-        f"{ops_p.numel()} op rows ({runs} insertion runs) whole, in "
-        f"{len(segs)} segments of {seg} and on the kernel's own rows: equal to plain")
-    return rows_err, walk_err
+        f"{ops_p.numel()} op rows ({runs} insertion runs, {left} at least as long as "
+        f"the forced windows) whole, in {len(segs)} segments of {seg} and on the "
+        f"kernel's own rows at {'; '.join(walk_name(x, tb.Cc) for x in walks)} (the "
+        f"first walk_shape's): equal to plain")
+    return rows_err, walk_err, left
 
 
 def phase_triplet_kernels(dev):
@@ -2253,6 +2296,10 @@ def phase_triplet_kernels(dev):
         ("wide rows", "tri-mg", _triplet_case_pairs(34, 6, (100, 450), (600, 1400)), 64),
     ]
     errs = [check_triplet_case(dev, *c) for c in cases]
+    left = np.sum([e[2] for e in errs], axis=0)
+    if left.min() < 1:
+        raise AssertionError(f"no insertion run of the triplet cases leaves the forced "
+                             f"walk windows: {left.tolist()}")
     return max(e[0] for e in errs), max(e[1] for e in errs)
 
 
@@ -2279,15 +2326,14 @@ def triplet_cell(dev, pairs):
 
     chosen = trows_mod.rows_shape(tb.B, tb.Cc, dev)
     threads = trows_mod.block_threads(tb.Cc)
-    shapes = (chosen, trows_mod.rows_launch(tb.Cc, 1, threads),
-              trows_mod.rows_launch(tb.Cc, 1, threads, hoist=False))
+    shapes = (chosen, trows_mod.rows_launch(tb.Cc, 1, threads))
 
     def rows(launch=chosen):
         return lambda: trows_mod.triplet_rows(
             *tb.rows_args(), tb.init, keep_grid=True, grid_out=grid[1:],
             amax_out=amax[1:], launch=launch)
 
-    # rows_shape's bands, one band with the table, and the body before both
+    # rows_shape's bands and one band
     turns = in_turns(dev, 5, *(rows(x) for x in shapes))
     rows_ms = mean(turns[0])
     (gp, ap, _), rows_plain_ms = _timed_once(lambda: trows_mod.triplet_rows_plain(
@@ -2299,6 +2345,7 @@ def triplet_cell(dev, pairs):
     del gp, ap, own
 
     whole = [(0, tb.n_cod)]
+    walk_launch = twalk_mod.walk_shape(tb.B, tb.Cc, dev)
     st_k, ops_k = tb.walk(twalk_mod.triplet_walk, grid, amax, whole)
     (st_p, ops_p), walk_plain_ms = _timed_once(
         lambda: tb.walk(twalk_mod.triplet_walk_plain, grid, amax, whole))
@@ -2325,14 +2372,16 @@ def triplet_cell(dev, pairs):
                             + ops_k.numel() * 4 + 24 * tb.B,
                             cols * CELL_OPS_TRIPLET_WALK),
     }
+    wb = out["walk_bound"]
     say("triplet", f"cell {out['shape']}: rows kernel {rows_ms:.3f} ms (mean of the turns) over {cells} "
         f"true cells ({cells / rows_ms / 1e6:.3f} Gcells/s) at {launch_name(chosen)}; "
         f"in turns {' / '.join(f'{t:.3f}' for t in turns[0])} ms, one band "
-        f"{' / '.join(f'{t:.3f}' for t in turns[1])}, one band without the table "
-        f"{' / '.join(f'{t:.3f}' for t in turns[2])}; plain "
-        f"{rows_plain_ms:.1f} ms; walk kernel {walk_ms:.3f} ms over {blocks} "
-        f"blocks and {cols} columns computed again, plain {walk_plain_ms:.1f} ms; "
-        f"both equal to plain")
+        f"{' / '.join(f'{t:.3f}' for t in turns[1])}; plain "
+        f"{rows_plain_ms:.1f} ms; walk kernel {walk_ms:.3f} ms "
+        f"({walk_ms / tb.n_cod * 1e3:.2f} us a codon block) at {walk_name(walk_launch, tb.Cc)} "
+        f"over {blocks} blocks and {cols} columns computed again, bound {wb[0]:.4f} ms "
+        f"by {wb[1]} ({wb[0] / walk_ms:.2%} of it reached), plain "
+        f"{walk_plain_ms:.1f} ms; both equal to plain")
     return out
 
 
@@ -2497,15 +2546,22 @@ def check_triplet_wide_segment(dev, a, b, t0, S):
            st, op, *tb.tables)
         return st, op
 
-    (st_k, ops_k), (st_p, ops_p) = through(twalk_mod.triplet_walk), through(
-        twalk_mod.triplet_walk_plain)
-    _sync(dev)
-    if not (torch.equal(st_k, st_p) and torch.equal(ops_k, ops_p)):
-        raise AssertionError("triplet wide segment: state or op rows of the walk "
-                             "differ from the plain version")
+    st_p, ops_p = through(twalk_mod.triplet_walk_plain)
+    walks = [twalk_mod.walk_shape(1, tb.Cc, dev), twalk_mod.walk_launch(tb.Cc, 8, 64, 64),
+             twalk_mod.walk_launch(tb.Cc, 2, 512, 1024),
+             twalk_mod.walk_launch(tb.Cc, 4, 512, bands=8),
+             twalk_mod.walk_launch(tb.Cc, 8, 256, bands=8)]
+    walk_err = 0.0
+    for walk in walks:
+        st_k, ops_k = through(walk_at(walk))
+        _sync(dev)
+        if not (torch.equal(st_k, st_p) and torch.equal(ops_k, ops_p)):
+            raise AssertionError(f"triplet wide segment: state or op rows of the walk at "
+                                 f"{walk_name(walk, tb.Cc)} differ from the plain version")
+        walk_err = max(walk_err, float((st_k - st_p).abs().max()),
+                       float((ops_k - ops_p).abs().max()))
     if int(state[0, 0]) <= 3 * t0 or int(st_p[0, 0]) != 3 * t0:
         raise AssertionError("triplet wide segment: the walk did not cross the segment")
-    walk_err = float(max((st_k - st_p).abs().max(), (ops_k - ops_p).abs().max()))
     launch = trows_mod.rows_shape(1, tb.Cc, dev)
     say("kernels", f"triplet wide segment: tri-mg {len(a)} x {len(b)} nt, codon blocks "
         f"{t0}..{t0 + S - 1} from the boundary under them, Cc={tb.Cc} "
@@ -2513,7 +2569,8 @@ def check_triplet_wide_segment(dev, a, b, t0, S):
         f"{S * tb.Cc} cells from the whole sweep and from the carry form, the carry "
         f"out with and without the grid, equal to plain and to one band; the walk's "
         f"state and {6 * S} op rows "
-        f"through the segment (entered at column {j_in}, left at {int(st_p[1, 0])}): "
+        f"through the segment (entered at column {j_in}, left at {int(st_p[1, 0])}) at "
+        f"{'; '.join(walk_name(x, tb.Cc) for x in walks)} (the first walk_shape's): "
         f"equal to plain")
     return rows_err, walk_err
 
@@ -2531,12 +2588,31 @@ def run_triplet_longpair(dev, card, tmp, a, b):
                              "segmented path, or ends in a stop codon")
     reset_launch_counts()
     torch.cuda.reset_peak_memory_stats(dev)
+    walked = []  # each walk launch's op rows and the j it left at
     t0 = time.perf_counter()
     with KernelTimer(dev) as timer:
-        row = _alignpair_row(tmp, a, b, ["-m", "tri-mg"])
+        timed = twalk_mod.triplet_walk
+
+        def spy(grid_seg, amax_seg, anc_seg, des, io, t_lo, state, ops, *rest, **kw):
+            out = timed(grid_seg, amax_seg, anc_seg, des, io, t_lo, state, ops, *rest, **kw)
+            walked.append((ops[6 * t_lo:6 * (t_lo + amax_seg.shape[0])].clone(),
+                           state[1].clone()))
+            return out
+
+        with wrappers({"triplet_walk": spy}):
+            row = _alignpair_row(tmp, a, b, ["-m", "tri-mg"])
     wall = time.perf_counter() - t0
     launches = {name: launch_counts()[name] for name in ("triplet_rows", "triplet_walk")}
     peak = torch.cuda.max_memory_allocated(dev)
+    cols = blocks = 0
+    for ops, j_end in walked:
+        c, n = walk_columns(ops.cpu().numpy(), j_end.cpu().numpy())
+        cols, blocks = cols + c, blocks + n
+    # as triplet_cell's: 12 B of boundary a column computed again, a lane and
+    # a codon a block, the sequences' columns and the op rows once a launch
+    walk_bound = bound(12 * cols + 5 * blocks + len(walked) * (8 * (len(b) + 1) + 24)
+                       + sum(ops.numel() * 4 for ops, _ in walked),
+                       cols * CELL_OPS_TRIPLET_WALK)
     n_seg = -(-(len(a) // 3) // tw.seg_cods_for(len(b) + 1))
     if launches != {"triplet_rows": 2 * n_seg, "triplet_walk": n_seg} or n_seg < 2:
         raise AssertionError(f"long triplet pair: launches {launches} for {n_seg} segments")
@@ -2553,7 +2629,10 @@ def run_triplet_longpair(dev, card, tmp, a, b):
         f"{wall:.2f} s wall, {n_seg} segments of {tw.seg_cods_for(len(b) + 1)} codon "
         f"blocks, rows {rows_s:.2f} s over {launches['triplet_rows']} launches (two "
         f"sweeps), walk {walk_s * 1e3:.1f} ms over {launches['triplet_walk']} (CUDA "
-        f"events): the card busy {(rows_s + walk_s) / wall:.1%}; peak device memory "
+        f"events; {walk_s * 1e6 / (len(a) // 3):.2f} us a codon block, {blocks} blocks "
+        f"and {cols} columns computed again, bound {walk_bound[0]:.3f} ms by "
+        f"{walk_bound[1]}, {walk_bound[0] / (walk_s * 1e3):.2%} of it reached): the card "
+        f"busy {(rows_s + walk_s) / wall:.1%}; peak device memory "
         f"{peak / 2**20:.1f} MiB; equal in strings and f32 score to the full-grid "
         f"route ({full_wall:.2f} s wall, peak {full_peak / 2**20:.1f} MiB)")
     return launches

@@ -35,10 +35,9 @@
 // neighbours, which must be on the card); a wait traps when the counter it
 // reads has not moved for about a second.
 //
-// The 16 deletion-lane entry costs first-max over x3 of cost[4q + x3] +
-// e[x3] depend only on the step and the column's descendant nucleotide (e is
-// 0 at column 0): a table of 6 classes x 16 groups built once a step (kHoist;
-// the body before it computed them in every column, and is kept for timing).
+// The 16 match-lane entry costs, first-max over x3 of cost[4q + x3] + e[x3],
+// depend only on the step and the column's descendant nucleotide (e is 0 at
+// column 0): a table of 6 classes x 16 groups built once a step.
 //
 // What bounds it on an H100: a tile is a chain of block-wide scans and
 // shifts (a dozen barriers) and some 400 f32 operations a column, and a
@@ -94,7 +93,6 @@ __device__ __noinline__ int wait_for(const int* flag, int target, int seen) {
 }
 
 // kMaxThreads bounds the registers a thread may take: 128 at 512 threads.
-template <bool kHoist>
 __global__ void __launch_bounds__(kMaxThreads) triplet_rows_kernel(
     const int32_t* __restrict__ anc_cods, const int32_t* __restrict__ des,
     const float* __restrict__ ins_off, const int32_t* __restrict__ steps,
@@ -106,7 +104,7 @@ __global__ void __launch_bounds__(kMaxThreads) triplet_rows_kernel(
   __shared__ float cost[64];
   __shared__ float KD[16];
   __shared__ int KDpay[16];
-  __shared__ float KK[kClasses * 16];  // kHoist: first-max x3 of cost + e
+  __shared__ float KK[kClasses * 16];  // first-max x3 of cost + e
   __shared__ int KKlane[kClasses * 16];  // and its lane 4q + x3
   __shared__ float sh_f[16 * kMaxWarps];
   __shared__ int sh_i[kMaxWarps];
@@ -150,8 +148,8 @@ __global__ void __launch_bounds__(kMaxThreads) triplet_rows_kernel(
         left[q] = __ldcg(rec_in + (size_t)(t % slots) * kRecord + q);
     // the entry costs, read in phase 3, behind the barriers of the scans
     // before it: the deletion lanes' first-maximal x3 of each group, and
-    // with kHoist the match lanes' of cost + e for each class of column
-    for (int x = tid; x < 16 + (kHoist ? kClasses * 16 : 0); x += T) {
+    // the match lanes' of cost + e for each class of column
+    for (int x = tid; x < 16 + kClasses * 16; x += T) {
       const int q = x & 15, d = (x >> 4) - 1;  // d -1: the deletion lanes; else a class
       float kd = 0.0f;
       int pay = 0;
@@ -261,24 +259,8 @@ __global__ void __launch_bounds__(kMaxThreads) triplet_rows_kernel(
       for (int q = 0; q < 16; ++q) {
         const float core3 = shiftmax3(g, j, sM2[q], sD2[q >> 2], sI2[q]);
         const float D3 = dmax3(g, M2[q], D2[q >> 2], I2[q]);
-        float kk;
-        int lane;
-        if (kHoist) {
-          kk = KK[cls * 16 + q];
-          lane = KKlane[cls * 16 + q];
-        } else {
-          kk = __fadd_rn(cost[4 * q], e[0]);
-          int pay = 0;
-#pragma unroll
-          for (int x3 = 1; x3 < 4; ++x3) {
-            const float v = __fadd_rn(cost[4 * q + x3], e[x3]);
-            if (v > kk) {
-              kk = v;
-              pay = x3;
-            }
-          }
-          lane = 4 * q + pay;
-        }
+        const float kk = KK[cls * 16 + q];
+        const int lane = KKlane[cls * 16 + q];
         const float Ml = __fadd_rn(core3, kk);
         const float Dl = __fadd_rn(D3, KD[q]);
         const float W = __fsub_rn(Ml, off);
@@ -353,9 +335,8 @@ __global__ void __launch_bounds__(kMaxThreads) triplet_rows_kernel(
   }
 }
 
-template <bool kHoist>
 int launch(void** args, int B, int threads, int bands, cudaStream_t stream) {
-  const void* kernel = (const void*)triplet_rows_kernel<kHoist>;
+  const void* kernel = (const void*)triplet_rows_kernel;
   const cudaError_t e =
       bands == 1 ? cudaLaunchKernel(kernel, dim3(B), dim3(threads), args, 0, stream)
                  : cudaLaunchCooperativeKernel(kernel, dim3(B * bands), dim3(threads),
@@ -369,15 +350,14 @@ int launch(void** args, int B, int threads, int bands, cudaStream_t stream) {
 // [2, 3, B, m + 1] is given and only carry_out is written). bands of
 // band_width columns a pair (a multiple of threads, covering m + 1); with
 // several, records [B, bands - 1, slots, 72] f32 and progress [B, bands]
-// zeros. hoist: 0 computes the entry costs in every column (the body before
-// the table, kept for timing).
+// zeros.
 extern "C" int coati_triplet_rows(
     const void* anc_cods, const void* des, const void* ins_off,
     const void* steps, const void* lens_m, const void* logP64,
     const void* match_emit, const void* gc, const void* carry_in, void* grid,
     void* amax, void* carry_out, void* scratch, void* records, void* progress,
     int B, int m, int S, int threads, int bands, int band_width, int slots,
-    int hoist, void* stream) {
+    void* stream) {
   if (B == 0) return 0;
   if (!block_ok(threads) || bands < 1 || band_width < 1 ||
       (long long)bands * band_width < m + 1 ||
@@ -390,9 +370,7 @@ extern "C" int coati_triplet_rows(
                   &match_emit, &gc,    &carry_in,  &grid,  &amax,   &carry_out,
                   &scratch,  &rec,     &prog,      &B,     &m,      &S,
                   &bands,    &band_width, &slots};
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return hoist ? launch<true>(args, B, threads, bands, st)
-               : launch<false>(args, B, threads, bands, st);
+  return launch(args, B, threads, bands, static_cast<cudaStream_t>(stream));
 }
 
 // Blocks of `threads` threads an SM can hold at once (what a cooperative
@@ -400,7 +378,7 @@ extern "C" int coati_triplet_rows(
 extern "C" int coati_triplet_rows_blocks_per_sm(int threads) {
   int n = 0;
   if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &n, triplet_rows_kernel<true>, threads, 0) != cudaSuccess)
+          &n, triplet_rows_kernel, threads, 0) != cudaSuccess)
     return -1;
   return n;
 }

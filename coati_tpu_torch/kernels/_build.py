@@ -77,13 +77,16 @@ SIGNATURES = {
     "coati_sample_walk_smem_bytes": [_I] * 4,
     # anc_cods des ins_off steps lens_m logP64 match_emit gc carry_in grid
     # amax carry_out scratch records progress, B m S threads bands band_width
-    # slots hoist, stream
-    "coati_triplet_rows": [_P] * 15 + [_I] * 8 + [_P],
+    # slots, stream
+    "coati_triplet_rows": [_P] * 15 + [_I] * 7 + [_P],
     # threads
     "coati_triplet_rows_blocks_per_sm": [_I],
-    # grid amax anc_seg des ins_off logP64 match_emit gc state ops scratch,
-    # B m S t_lo threads, stream
-    "coati_triplet_walk": [_P] * 11 + [_I] * 5 + [_P],
+    # grid amax anc_seg des ins_off logP64 match_emit gc state ops scratch
+    # stamps, B m S t_lo cols threads window bands, stream
+    "coati_triplet_walk": [_P] * 12 + [_I] * 8 + [_P],
+    # window
+    "coati_triplet_walk_smem_bytes": [_I],
+    "coati_triplet_walk_smem_limit": [],
 }
 
 _lib = None

@@ -33,8 +33,8 @@ from coati_tpu_torch.kernels import _build
 
 NEG = -1.0e30
 LAUNCHES = 0  # kernel launches made by triplet_rows
-# threads a block at most, of the rows kernel and of the walk kernel (the
-# most they are compiled for): one column each, a tile at a time
+# threads a block at most (the most the rows kernel is compiled for): one
+# column each, a tile at a time
 THREADS = 512
 RECORD = 72  # f32 slots of a band's record of one step (csrc/triplet_rows.cu kRecord)
 # F: records of each band boundary's ring. A band runs about a step behind
@@ -217,15 +217,12 @@ def block_threads(Cc: int) -> int:
 class RowsLaunch:
     """How the rows of Cc columns are launched: `bands` blocks a pair of
     `threads` threads, each band `width` columns (whole tiles; the last band
-    may hold fewer), a ring of `slots` records a band boundary. hoist=False
-    takes the body that computes the entry costs in every column (kept for
-    timing)."""
+    may hold fewer), a ring of `slots` records a band boundary."""
 
     bands: int
     threads: int
     width: int
     slots: int = RECORD_SLOTS
-    hoist: bool = True
 
     def check(self, Cc: int) -> None:
         """Raises unless the bands cover Cc columns, each but the last
@@ -235,8 +232,8 @@ class RowsLaunch:
                              f"cut {Cc} columns")
 
 
-def rows_launch(Cc: int, bands: int, threads: int, *, slots: int = RECORD_SLOTS,
-                hoist: bool = True) -> RowsLaunch:
+def rows_launch(Cc: int, bands: int, threads: int, *,
+                slots: int = RECORD_SLOTS) -> RowsLaunch:
     """At most `bands` bands a pair of whole tiles of `threads` threads over
     Cc columns, as even as whole tiles allow. Raises on a shape the kernel
     does not take."""
@@ -246,7 +243,7 @@ def rows_launch(Cc: int, bands: int, threads: int, *, slots: int = RECORD_SLOTS,
                          f"32, one or more bands and slots")
     tiles = -(-Cc // threads)
     per = -(-tiles // min(bands, tiles))
-    return RowsLaunch(-(-tiles // per), threads, per * threads, slots, hoist)
+    return RowsLaunch(-(-tiles // per), threads, per * threads, slots)
 
 
 def blocks_per_sm(threads: int) -> int:
@@ -345,7 +342,7 @@ def triplet_rows(anc_cods, des_codes, ins_off, steps, lens_m, logP64,
             match_emit.data_ptr(), gc.data_ptr(), carry.data_ptr(),
             ptr(grid), ptr(amax), out.data_ptr(), ptr(scratch), ptr(records),
             ptr(progress), B, des_codes.shape[1], S, launch.threads, launch.bands,
-            launch.width, launch.slots, int(launch.hoist), stream,
+            launch.width, launch.slots, stream,
         )
     _build.check(rc, "triplet_rows")
     LAUNCHES += 1

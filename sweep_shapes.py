@@ -3,10 +3,10 @@
 at several launch shapes, on its two several-blocks routes in turns, and
 hold every shape to the one-block result.
 
-    python3 sweep_shapes.py [segment] [forward] [triplet] [fill] [score]
-                            [segwalk] [samplewalk]
+    python3 sweep_shapes.py [--root DIR] [segment] [forward] [triplet] [fill]
+                            [score] [segwalk] [samplewalk] [walkcells]
                                  # from the repository root; needs one card;
-                                 # no argument: every table
+                                 # no argument: every table but walkcells
 
 For square random pairs of several sizes, alone and in a group of four, and
 for several (blocks a pair, threads a block), it runs one 4,000-diagonal
@@ -54,13 +54,25 @@ kernels/traceback_walk.py WINDOW_STEPS and WALK_WARPS.
 Then the triplet rows kernel (csrc/triplet_rows.cu), which sweeps a row one
 column a thread, a tile of the block's threads at a time, a pair's columns
 cut into bands of tiles, one block a band: the two tri-mg batches
-chip_smoke.py aligns and the first 512 codon steps of its long pair, at
+chip_smoke.py aligns, the first 512 codon steps of a lone 6,000 nt pair and
+of its long pair, at
 bands a pair x threads a band (128 to 512, the most the kernel is compiled
-for; as many bands as the card holds at once), and one band without the
-entry-cost table (the body before bands), each held equal to the shape
-rows_shape picks on the pairs' own cells; the walk kernel
-(csrc/triplet_walk.cu) timed once a shape. Its rows set
-kernels/triplet_rows.py rows_shape.
+for; as many bands as the card holds at once), each held equal to the shape
+rows_shape picks on the pairs' own cells; then the walk kernel
+(csrc/triplet_walk.cu) at columns a thread x threads a block, at
+walk_shape's window, and on the long pair at smaller windows (the rest in
+the device scratch), each held equal in state and op rows to walk_shape's.
+Its rows set kernels/triplet_rows.py rows_shape and
+kernels/triplet_walk.py walk_shape.
+
+The walkcells table times the triplet walk kernel at its three cells, each
+pair's rows by the package's own rows kernel: 64 x 999 nt and 16 x 2,997 nt
+whole, and the 15,000 nt pair over the segments of its long route (the
+launches alignpair makes), then that pair through alignpair -m tri-mg twice
+(host clock). It uses only what the package had before the
+walk's redesign, so `--root DIR` times an unpacked older tree of the
+repository (its chip_smoke.py and coati_tpu_torch imported from DIR), in
+the same session as this one.
 
 The samplewalk table times the sample walk (csrc/sample_walk.cu) at S steps
 a window x warps a block and at one thread a sample, on the sample verb's
@@ -71,12 +83,19 @@ WINDOW_STEPS and WALK_WARPS.
 
 from __future__ import annotations
 
+import functools
 import subprocess
 import sys
 import tempfile
+import time
 from pathlib import Path
 
-sys.path.insert(0, str(Path(__file__).resolve().parent))
+# --root DIR: import chip_smoke and coati_tpu_torch from another tree
+if len(sys.argv) > 2 and sys.argv[1] == "--root":
+    sys.path.insert(0, str(Path(sys.argv[2]).resolve()))
+    del sys.argv[1:3]
+else:
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
@@ -91,10 +110,11 @@ from chip_smoke import (  # noqa: E402
     TRIPLET_LONG_NT,
     TripletBatch,
     make_pairs,
+    rows_grid,
     run_sample,
     wrappers,
 )
-from coati_tpu_torch import triplet_hmm  # noqa: E402
+from coati_tpu_torch import cli, triplet_hmm  # noqa: E402
 from coati_tpu_torch.align import longseq  # noqa: E402
 from coati_tpu_torch.align.wavefront import walk_segment_plain  # noqa: E402
 from coati_tpu_torch import triplet_wavefront as tw  # noqa: E402
@@ -125,6 +145,9 @@ FWD_RTOL, FWD_ATOL = 4e-6, 2e-5  # chip_smoke.py's, of the Forward's values
 TRIPLET_THREADS = (512, 256, 128)  # threads a band
 TRIPLET_BANDS = (2, 3, 4, 6, 8, 12, 15, 24, 30, 60, 120)  # bands a pair, at most
 TRIPLET_LONG_STEPS = 512  # codon steps of the long pair that are swept
+TRIPLET_MID_NT = 6_000  # a lone pair between the batches and the long pair (its first steps)
+WALK_THREADS = (64, 128, 256, 512)  # the triplet walk's threads a block
+WALK_WINDOWS = (64, 256, 1024)  # and its windows beside walk_shape's, on the long pair
 # samplewalk table: (S, warps a block); S = 0 is one thread a sample
 SAMPLE_SHAPES = ((0, 1), (8, 4), (16, 2), (16, 4), (16, 8), (24, 4), (32, 1),
                  (32, 2), (32, 4), (32, 8))
@@ -254,23 +277,25 @@ def fmt(ms, scale=1.0):
 
 
 def triplet_table(dev, card):
-    """The triplet rows kernel at bands a pair x threads a band (and the
-    body before bands: one band without the entry-cost table), each held
-    to the result at the shape rows_shape picks on the pairs' own cells; the
-    walk kernel once a shape, at its own threads."""
+    """The triplet rows kernel at bands a pair x threads a band, each held
+    to the result at the shape rows_shape picks on the pairs' own cells;
+    then the walk (on the whole pairs) at columns a thread x threads a block
+    (and windows, and bands), each held to walk_shape's."""
     model = triplet_hmm.build_triplet_model(alignment_params("tri-mg"))
     shapes = [(n, nt, seed, None) for n, nt, seed in TRIPLET_BATCHES]
+    shapes.append((1, TRIPLET_MID_NT, 16, TRIPLET_LONG_STEPS))
     shapes.append((1, TRIPLET_LONG_NT, 13, TRIPLET_LONG_STEPS))
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for n, nt, seed, steps in shapes:
-        pairs = make_pairs(n, np.random.default_rng(seed), length_mix=[(nt, 1.0)])
-        if steps:  # the first codon steps of the ancestor against all of des
+        whole = make_pairs(n, np.random.default_rng(seed), length_mix=[(nt, 1.0)])
+        pairs = whole
+        if steps:  # the rows over the first codon steps of the ancestor against all of des
             pairs = [(a[:3 * steps], b) for a, b in pairs]
         tb = TripletBatch(model, pairs, dev)
         own = tb.true_cells()
         chosen = triplet_rows.rows_shape(tb.B, tb.Cc, dev)
         launches = [chosen, triplet_rows.rows_launch(
-            tb.Cc, 1, triplet_rows.block_threads(tb.Cc), hoist=False)]
+            tb.Cc, 1, triplet_rows.block_threads(tb.Cc))]
         for threads in TRIPLET_THREADS:
             room = sms * triplet_rows.blocks_per_sm(threads) // tb.B
             for bands in TRIPLET_BANDS:
@@ -289,11 +314,16 @@ def triplet_table(dev, card):
 
         grid, amax = rows(chosen)
         want = (grid[own], amax[own])
-        walk_ms = elapsed_ms(lambda: tb.walk(triplet_walk.triplet_walk, grid, amax,
-                                             [(0, tb.n_cod)]))
         print(f"[{card}] triplet {n} x {nt} nt ({tb.n_cod} codon steps, {tb.Cc} "
-              f"columns): walk {walk_ms:.3f} ms = {walk_ms / tb.n_cod * 1e3:.2f} us a "
-              f"block", flush=True)
+              f"columns)", flush=True)
+        if steps:  # the walk on the whole pair: the cut one starts with a long run
+            tw_ = TripletBatch(model, whole, dev)
+            gw, aw = rows_grid(tw_)
+            print(f"[{card}]   the walk over all {tw_.n_cod} codon blocks", flush=True)
+            walk_table(card, tw_, gw, aw, True)
+            del gw, aw
+        else:
+            walk_table(card, tb, grid, amax, False)
         for launch in launches:
             got = rows(launch)
             if not (torch.equal(got[0][own], want[0]) and torch.equal(got[1][own], want[1])):
@@ -302,11 +332,116 @@ def triplet_table(dev, card):
             del got
             ms = elapsed_ms(lambda: rows(launch))
             mark = " (rows_shape's)" if launch == chosen else ""
-            body = "" if launch.hoist else " without the entry-cost table"
             print(f"[{card}]   rows at {launch.bands} bands of {launch.width} columns x "
-                  f"{launch.threads} threads{body}{mark}: equal; {ms:.3f} ms = "
+                  f"{launch.threads} threads{mark}: equal; {ms:.3f} ms = "
                   f"{ms / tb.n_cod * 1e3:.2f} us a codon step", flush=True)
         del grid, amax, want, own
+
+
+def walkcells_table(dev, card):
+    """The triplet walk at its three cells, by the package imported (see
+    --root): the two batches whole, the 15,000 nt pair in the segments of
+    its long route, mean of 3 after a warm-up (CUDA events); then the pair's
+    alignpair wall, twice."""
+    model = triplet_hmm.build_triplet_model(alignment_params("tri-mg"))
+    cells = [(f"{n} x {nt} nt", make_pairs(n, np.random.default_rng(seed),
+                                           length_mix=[(nt, 1.0)]), False)
+             for n, nt, seed in TRIPLET_BATCHES]
+    (a, b), = make_pairs(1, np.random.default_rng(13), length_mix=[(TRIPLET_LONG_NT, 1.0)])
+    cells.append((f"one {len(a)} x {len(b)} nt pair", [(a, b)], True))
+    for name, pairs, long in cells:
+        tb = TripletBatch(model, pairs, dev)
+        shape = (tb.n_cod + 1, 3, tb.B, tb.Cc)
+        grid = torch.empty(shape, dtype=torch.float32, device=dev)
+        amax = torch.empty(shape, dtype=torch.uint8, device=dev)
+        grid[0], amax[0] = tb.init, 0
+        triplet_rows.triplet_rows(*tb.rows_args(), tb.init, keep_grid=True,
+                                  grid_out=grid[1:], amax_out=amax[1:])
+        seg = tw.seg_cods_for(tb.Cc) if long else tb.n_cod
+        spans = [(lo, min(seg, tb.n_cod - lo)) for lo in range(0, tb.n_cod, seg)]
+        ms = elapsed_ms(lambda: tb.walk(triplet_walk.triplet_walk, grid, amax, spans), 3)
+        print(f"[{card}] walkcells {name}: the walk {ms:.3f} ms over {len(spans)} "
+              f"launch{'es' if len(spans) > 1 else ''} = {ms / tb.n_cod * 1e3:.2f} us a codon "
+              f"block", flush=True)
+        del grid, amax
+    # the long pair end to end: alignpair -m tri-mg, twice (host clock)
+    with tempfile.TemporaryDirectory() as tmp:
+        src = Path(tmp) / "pair.fasta"
+        src.write_text(f">anc\n{a}\n>des\n{b}\n")
+        walls = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            if cli.main(["alignpair", str(src), "-m", "tri-mg", "-o", str(Path(tmp) / "o.json")]):
+                raise AssertionError("alignpair -m tri-mg failed")
+            walls.append(time.perf_counter() - t0)
+    print(f"[{card}] walkcells one {len(a)} x {len(b)} nt pair through alignpair -m tri-mg: "
+          f"{' / '.join(f'{w:.3f}' for w in walls)} s wall", flush=True)
+
+
+def walk_table(card, tb, grid, amax, windows):
+    """The triplet walk over a batch's codon blocks at walk_shape's launch,
+    then at every columns a thread x threads a block it takes (at that
+    window), and with `windows` at WALK_WINDOWS too: each equal in state and
+    op rows to walk_shape's, timed."""
+    whole = [(0, tb.n_cod)]
+    chosen = triplet_walk.walk_shape(tb.B, tb.Cc, tb.dev)
+    launches = [chosen]
+    for cols in triplet_walk.COLS:
+        for threads in WALK_THREADS:
+            if threads > (triplet_walk.THREADS // 2 if cols == 8 else triplet_walk.THREADS):
+                continue
+            launch = triplet_walk.walk_launch(tb.Cc, cols, threads, chosen.window)
+            if launch not in launches:
+                launches.append(launch)
+    if windows:
+        launches += [triplet_walk.walk_launch(tb.Cc, chosen.cols, chosen.threads, w)
+                     for w in WALK_WINDOWS]
+    # the band route: bands of one pass, a cluster of 2-8 blocks a pair, where
+    # every pair's bands fit the SMs at once
+    sms = torch.cuda.get_device_properties(tb.dev).multi_processor_count
+    for cols in triplet_walk.COLS:
+        for threads in WALK_THREADS:
+            bands = -(-tb.Cc // (cols * threads))
+            if (2 <= bands <= triplet_walk.MAX_BANDS and tb.B * bands <= sms
+                    and threads <= (triplet_walk.THREADS // 2 if cols == 8
+                                    else triplet_walk.THREADS)):
+                launch = triplet_walk.walk_launch(tb.Cc, cols, threads, bands=bands)
+                if launch not in launches:
+                    launches.append(launch)
+
+    def walk(launch):
+        return tb.walk(functools.partial(triplet_walk.triplet_walk, launch=launch),
+                       grid, amax, whole)
+
+    want = walk(chosen)
+    blocks = int(((want[1].reshape(-1, 6, tb.B) >> 2).sum(axis=1) > 0).sum())
+    # where a block's time goes at walk_shape's launch: the kernel's clock stamps
+    stamps = torch.zeros((tb.B, tb.n_cod, 5), dtype=torch.int64, device=tb.dev)
+    tb.walk(functools.partial(triplet_walk.triplet_walk, launch=chosen, stamps=stamps),
+            grid, amax, whole)
+    s = stamps.cpu().numpy().astype(np.float64)
+    act = s[:, :, 0] != 0
+    d = np.diff(s, axis=2)[act].mean(axis=0)
+    gap = (s[:, :-1, 0] - s[:, 1:, 4])[act[:, :-1] & act[:, 1:]].mean()
+    print(f"[{card}]   walk_shape's {chosen}: SM cycles a block (mean over {int(act.sum())} "
+          f"active blocks): to the first row's end {d[0]:.0f}, the rest of the passes "
+          f"{d[1]:.0f}, to the walk {d[2]:.0f}, the walk {d[3]:.0f}, the walk's end to the "
+          f"next block {gap:.0f}", flush=True)
+    for launch in launches:
+        got = walk(launch)
+        if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+            raise AssertionError(f"triplet walk at {launch}: differs from walk_shape's "
+                                 f"{chosen}")
+        ms = elapsed_ms(lambda: walk(launch))
+        mark = " (walk_shape's)" if launch == chosen else ""
+        passes = -(-tb.Cc // (launch.cols * launch.threads))
+        how = (f"{launch.bands} bands" if launch.bands > 1 else
+               f"a full row {passes} pass{'es' if passes > 1 else ''}")
+        print(f"[{card}]   walk at {launch.cols} columns x {launch.threads} threads "
+              f"({how}), a window of "
+              f"{launch.window}{' and the scratch' if launch.scratch(tb.Cc) else ''}"
+              f"{mark}: equal; {ms:.3f} ms = {ms / tb.n_cod * 1e3:.2f} us a codon block "
+              f"({blocks} active blocks over the pairs)", flush=True)
 
 
 def samplewalk_table(dev, card):
@@ -345,8 +480,8 @@ def samplewalk_table(dev, card):
 def main(argv=None) -> int:
     names = {"segment", "forward", "triplet", "fill", "score", "segwalk", "samplewalk"}
     tables = set(sys.argv[1:] if argv is None else argv) or names
-    if tables - names:
-        raise SystemExit("sweep_shapes: tables are " + ", ".join(sorted(names)))
+    if tables - names - {"walkcells"}:
+        raise SystemExit("sweep_shapes: tables are " + ", ".join(sorted(names | {"walkcells"})))
     if not torch.cuda.is_available():
         raise SystemExit("sweep_shapes: needs a CUDA device")
     dev = torch.device("cuda:0")
@@ -363,6 +498,8 @@ def main(argv=None) -> int:
         fill_table(dev, card)
     if "triplet" in tables:
         triplet_table(dev, card)
+    if "walkcells" in tables:
+        walkcells_table(dev, card)
     if "samplewalk" in tables:
         samplewalk_table(dev, card)
     if "segment" in tables:

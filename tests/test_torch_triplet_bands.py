@@ -432,7 +432,7 @@ def test_wrapper_on_cpu_takes_plain_at_any_launch():
     init = tw.triplet_init_carry(des, io, tables[2])
     before = rows_k.LAUNCHES
     want = rows_k.triplet_rows(anc, des, io, lt, lm, *tables, init)
-    for launch in (rows_k.rows_launch(Cc, 3, 32), rows_k.rows_launch(Cc, 1, 64, hoist=False)):
+    for launch in (rows_k.rows_launch(Cc, 3, 32), rows_k.rows_launch(Cc, 2, 64, slots=1)):
         got = rows_k.triplet_rows(anc, des, io, lt, lm, *tables, init, launch=launch)
         assert all(torch.equal(g, w) for g, w in zip(got, want))
     assert rows_k.LAUNCHES == before
