@@ -121,6 +121,26 @@ Phases, each printing lines (any failure raises, exit code non-zero):
              TRIPLET_LONG_NT nt through alignpair -m tri-mg, which the
              default byte budget sends down the segmented path, held string
              for string to the full-grid route.
+10. multi  - two lanes, two CUDA streams on the one card (LANES). The main
+             path's 10,000 pairs through batch_align over the two lanes,
+             counters and each lane's chunk count reset just before and read
+             just after: every row byte-equal to one lane's, which equal
+             phase 4's; both kernels launched, both lanes ran chunks; warm
+             runs in turns with one lane; the kernels' busy share of a
+             traced two-lane run. The mesh entry points on the two lanes,
+             each equal to one lane: sharded_viterbi_scores over phase 5's
+             1,004 pairs (the long ones spread over blocks on the second
+             lane), sharded_triplet_align_batch at 64 x 999 nt against
+             batch_align -m tri-mg, sharded_sample_batch at 9,999 nt x 200
+             op for op against sample_batch_device, dryrun_multichip(LANES).
+             Then batch --multihost in two processes of the CLI (gloo, a
+             free localhost port) on the card, over 2,000 pairs of the main
+             mix under mar-mg and 16 pairs of 999 nt under tri-mg with a
+             rejected pair in each shard: each process's kernels launched,
+             every merged row byte-equal to a one-process run's row for its
+             pair (under mar-mg the whole file), the scores manifest equal
+             to its rows with null at the rejected pairs. Prints its
+             seconds.
 
 Every line carries the seconds since the start. The line before last is a
 JSON object with one entry per kernel; the last line is
@@ -146,9 +166,10 @@ sys.path.insert(0, str(ROOT))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-from coati_tpu_torch import batchrun, cli, triplet_hmm, utils  # noqa: E402
+from coati_tpu_torch import batchrun, cli, driver, triplet_hmm, utils  # noqa: E402
+from coati_tpu_torch import device as device_mod  # noqa: E402
 from coati_tpu_torch import triplet_wavefront as tw  # noqa: E402
-from coati_tpu_torch.align import engine, longseq  # noqa: E402
+from coati_tpu_torch.align import engine, longseq, sample_device  # noqa: E402
 from coati_tpu_torch.align.sample_device import sample_paths_plain  # noqa: E402
 from coati_tpu_torch.align.wavefront import (  # noqa: E402
     traceback_plain,
@@ -168,6 +189,8 @@ from coati_tpu_torch.kernels import wavefront_forward as fwd_mod  # noqa: E402
 from coati_tpu_torch.kernels import wavefront_score as score_mod  # noqa: E402
 from coati_tpu_torch.kernels import wavefront_segment as seg_mod  # noqa: E402
 from coati_tpu_torch.params import alignment_params, params_from_numpy  # noqa: E402
+from coati_tpu_torch.parallel import dryrun as dryrun_mod  # noqa: E402
+from coati_tpu_torch.parallel import mesh as mesh_mod  # noqa: E402
 from coati_tpu_torch.structs import SeqData  # noqa: E402
 from coati_tpu_torch.utils import encode_marginal  # noqa: E402
 
@@ -239,6 +262,13 @@ CELL_OPS_TRIPLET = 387
 # add, three I of 4
 CELL_OPS_TRIPLET_WALK = 47
 WARM_RUNS = 5  # timed warm runs of the main path; the first is also checked
+# the multi phase: two lanes (two streams) on the one card; warm runs of the
+# main path a lane count, in turns; pairs of the main mix, and (pairs, nt,
+# seed) of a tri-mg stream, for the two-process batch --multihost runs
+LANES = ["cuda:0", "cuda:0"]
+MULTI_WARM_RUNS = 3
+MULTIHOST_MIX_PAIRS = 2_000
+MULTIHOST_TRIPLET = (16, 999, 18)
 # The Forward kernel against its plain version: lse is built from expf and
 # log1pf, which differ from torch's CUDA exp and log1p in the last place, and
 # the differences add up along a path, so a value is held to FWD_ATOL +
@@ -1205,12 +1235,19 @@ class KernelTimer:
         return sum(s.elapsed_time(e) for s, e in self.events.get(name, [])) / 1e3
 
 
-def _run_batch(named, dev, model="mar-mg"):
+def _batch_text(named, device, model="mar-mg"):
+    """batch_align's output for `named` on `device` (a device or lanes):
+    (pairs aligned, the JSON lines as written)."""
     out = io.StringIO()
-    n = batchrun.batch_align(alignment_params(model), named, out, device=dev)
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
-    return n, [json.loads(line) for line in out.getvalue().splitlines()]
+    n = batchrun.batch_align(alignment_params(model), named, out, device=device)
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    return n, out.getvalue()
+
+
+def _run_batch(named, dev, model="mar-mg"):
+    n, text = _batch_text(named, dev, model)
+    return n, [json.loads(line) for line in text.splitlines()]
 
 
 def _check_rows(named, rows):
@@ -1305,7 +1342,8 @@ def phase_main(dev, n_pairs=N_PAIRS):
             _run_batch(named, dev)
         timer.wall = time.perf_counter() - t0
     return {"warm_s": warm, "cold_s": cold, "launches": launches, "peak": peak,
-            "true_cells": true_cells, "timer": timer, "n": n, "named": named}
+            "true_cells": true_cells, "timer": timer, "n": n, "named": named,
+            "rows": rows}
 
 
 # --- phase 5 ----------------------------------------------------------------
@@ -1315,15 +1353,22 @@ def _encoded(pairs):
             [a for a, _ in pairs], [b for _, b in pairs])
 
 
+def _trimmed(pairs):
+    """Each pair as SeqData with its end stop codons trimmed (.stops), as
+    batch_align and alignpair trim them."""
+    datas = []
+    for a, b in pairs:
+        d = SeqData(names=["anc", "des"], seqs=[a, b])
+        utils.trim_end_stops(d)
+        datas.append(d)
+    return datas
+
+
 def score_kernel_scores(pairs, aln, dev):
     """The scores batch_align and alignpair must give for `pairs`: the score
     kernel's over the pairs with their end stop codons trimmed, then the
     end-stop adjustment those verbs apply (utils.restore_end_stops)."""
-    datas = []
-    for a, b in pairs:
-        d = SeqData(names=["a", "b"], seqs=[a, b])
-        utils.trim_end_stops(d)
-        datas.append(d)
+    datas = _trimmed(pairs)
     enc_as, enc_bs, _, _ = _encoded([tuple(d.seqs) for d in datas])
     scores = engine.viterbi_scores_batch(enc_as, enc_bs, aln.subst_matrix,
                                          aln.gap, device=dev)
@@ -1591,6 +1636,7 @@ def phase_long(dev, mix_named):
             "score_wall": score_wall, "full_wall": full_wall,
             "true_cells": sum(len(a) * len(b) for a, b in long_pairs),
             "seg_diagonals": T, "segments": timer.count("segment_bp"),
+            "pairs": [(a, b) for _, a, _, b in named],
             "group": f"B={N_LONG} C={C} Dtot={Dtot}",
             "cell": _segment_cell(dev, long_pairs, aln)}
 
@@ -2661,6 +2707,263 @@ def phase_triplet(dev, card):
     return cell
 
 
+# --- phase 10: several lanes and several processes ---------------------------
+# run in a child process: the CLI's own entry point, then the launch counts of
+# the kernels it may run, as JSON on the last line of stderr
+CLI_WITH_COUNTS = """
+import json, sys
+from coati_tpu_torch import cli
+from coati_tpu_torch.kernels import traceback_walk, triplet_rows, triplet_walk, wavefront_fill
+rc = cli.main(sys.argv[1:])
+print(json.dumps({"wavefront_fill": wavefront_fill.LAUNCHES,
+                  "traceback_walk": traceback_walk.LAUNCHES,
+                  "triplet_rows": triplet_rows.LAUNCHES,
+                  "triplet_walk": triplet_walk.LAUNCHES}), file=sys.stderr)
+sys.exit(rc)
+"""
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def _restored(datas, results, gap):
+    """(alignment strings, f32 score) of each result, with the end stop
+    codons that trim_end_stops took from its pair put back, as batch_align
+    writes them."""
+    out = []
+    for d, (s0, s1, sc) in zip(datas, results):
+        e = SeqData(names=list(d.names), seqs=[s0, s1], score=sc, stops=list(d.stops))
+        utils.restore_end_stops(e, gap)
+        out.append((e.seqs[0], e.seqs[1], np.float32(e.score)))
+    return out
+
+
+def multi_main_path(dev, card, main_run):
+    """The main path's 10,000 pairs through batch_align over two lanes:
+    every row byte-equal to one lane's, which equal phase 4's; warm runs in
+    turns with one lane; chunks a lane, launches, the kernels' busy share."""
+    named = main_run["named"]
+    lanes = device_mod.resolve_devices(LANES)
+    if len(lanes) != 2 or (dev.type == "cuda" and any(x.stream is None for x in lanes)):
+        raise AssertionError(f"two lanes with streams of their own expected: {lanes}")
+    _, one_text = _batch_text(named, dev)
+    if [json.loads(line) for line in one_text.splitlines()] != main_run["rows"]:
+        raise AssertionError("one lane no longer gives phase 4's rows")
+    _batch_text(named, lanes)  # warm the lanes' streams and pools
+    for lane in lanes:
+        lane.chunks = 0
+    reset_launch_counts()
+    n, two_text = _batch_text(named, lanes)
+    launches = {name: launch_counts()[name] for name in ("wavefront_fill", "traceback_walk")}
+    chunks = [lane.chunks for lane in lanes]
+    if n != len(named) or two_text != one_text:
+        bad = sum(x != y for x, y in zip(two_text.splitlines(), one_text.splitlines()))
+        raise AssertionError(f"two lanes: {bad} rows differ from one lane's")
+    if min(chunks) == 0 or (dev.type == "cuda" and min(launches.values()) == 0):
+        raise AssertionError(f"two lanes: launches {launches}, chunks a lane {chunks}")
+    walls = {1: [], 2: []}
+    for q in [1, 2, 2, 1, 1, 2][:2 * MULTI_WARM_RUNS]:
+        t0 = time.perf_counter()
+        _batch_text(named, lanes if q == 2 else dev)
+        walls[q].append(time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    with KernelTimer(dev) as timer:
+        _batch_text(named, lanes)
+    timer.wall = time.perf_counter() - t0
+    busy = timer.seconds("wavefront_fill") + timer.seconds("traceback_walk")
+
+    def rate(ws):
+        w = sorted(ws)
+        return (f"median {n / w[len(w) // 2]:.1f} aln/s (fastest {n / w[0]:.1f}, slowest "
+                f"{n / w[-1]:.1f}; walls {', '.join(f'{x:.3f}' for x in ws)} s)")
+
+    say("multi", f"[{card}] batch_align {n} pairs over two lanes {LANES} (two "
+        f"streams): every row byte-equal to one lane's and to phase 4's; chunks a "
+        f"lane {chunks}; launches {launches}")
+    say("multi", f"[{card}] warm, in turns one lane / two lanes / two / one / one / "
+        f"two: one lane {rate(walls[1])}; two lanes {rate(walls[2])}")
+    say("multi", f"[{card}] two lanes, one traced run: fill "
+        f"{timer.seconds('wavefront_fill') * 1e3:.1f} ms over "
+        f"{timer.count('wavefront_fill')} launches, walk "
+        f"{timer.seconds('traceback_walk') * 1e3:.1f} ms over "
+        f"{timer.count('traceback_walk')} (CUDA events on the lanes' streams, "
+        f"summed): {busy / timer.wall:.1%} of the {timer.wall:.3f} s wall")
+    return {"walls": walls, "chunks": chunks, "launches": launches}
+
+
+def multi_mesh(dev, card, long_run):
+    """The mesh entry points over two lanes, each equal to one lane's."""
+    mesh = mesh_mod.make_mesh(devices=LANES)
+    aln = alignment_params()
+    done = []
+
+    # scores of phase 5's pairs: 1,000 of the main mix and the four long
+    # ones, which the second lane's strips spread over blocks (cooperative)
+    datas = _trimmed(long_run["pairs"])
+    enc = [encode_marginal(*d.seqs) for d in datas]
+    enc_as, enc_bs = [e[0] for e in enc], [e[1] for e in enc]
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    got = mesh_mod.sharded_viterbi_scores(enc_as, enc_bs, aln.subst_matrix, aln.gap, mesh)
+    wall = time.perf_counter() - t0
+    n_score = launch_counts()["wavefront_score"]
+    want = engine.viterbi_scores_batch(enc_as, enc_bs, aln.subst_matrix, aln.gap,
+                                       device=dev)
+    if not np.array_equal(got, want) or (dev.type == "cuda" and n_score == 0):
+        raise AssertionError(f"sharded_viterbi_scores: {int((got != want).sum())} "
+                             f"scores differ from one lane's ({n_score} launches)")
+    done.append(f"sharded_viterbi_scores over {len(enc)} pairs ({wall:.2f} s, "
+                f"{n_score} launches) bit-equal to viterbi_scores_batch")
+
+    # triplet: phase 9's first batch
+    n_tri, nt, seed = TRIPLET_BATCHES[0]
+    pairs = make_pairs(n_tri, np.random.default_rng(seed), length_mix=[(nt, 1.0)])
+    named = [(f"anc{i}", a, f"des{i}", b) for i, (a, b) in enumerate(pairs)]
+    _, rows = _run_batch(named, dev, "tri-mg")
+    datas = _trimmed(pairs)
+    model = _triplet_model("tri-mg")
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    tri = mesh_mod.sharded_triplet_align_batch(model, [tuple(d.seqs) for d in datas], mesh)
+    wall = time.perf_counter() - t0
+    n_rows, n_walk = launch_counts()["triplet_rows"], launch_counts()["triplet_walk"]
+    for i, (row, got) in enumerate(zip(rows, _restored(datas, tri, aln.gap))):
+        want = (*row["alignment"].values(), np.float32(row["score"]))
+        if got != want:
+            raise AssertionError(f"sharded_triplet_align_batch: pair {i} differs from "
+                                 f"batch_align -m tri-mg")
+    if dev.type == "cuda" and min(n_rows, n_walk) < 2:
+        raise AssertionError(f"sharded triplet: launches rows {n_rows}, walk {n_walk}")
+    done.append(f"sharded_triplet_align_batch {n_tri} x {nt} nt ({wall:.2f} s, rows "
+                f"{n_rows} and walk {n_walk} launches) equal to batch_align -m tri-mg")
+
+    # sampling: phase 7's first pair, the draws split over the lanes
+    nt, n, seed = SAMPLE_RUNS[0]
+    (a, b), = make_pairs(1, np.random.default_rng(seed), length_mix=[(nt, 1.0)])
+    d = _trimmed([(a, b)])[0]
+    enc_a, enc_b = encode_marginal(*d.seqs)
+    mdi, corners = driver._forward_diag(enc_a, enc_b, aln, dev)
+    args = (mdi, corners, enc_a, enc_b, aln.subst_matrix, *d.seqs, aln.gap, seed, n)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    drawn = mesh_mod.sharded_sample_batch(*args, mesh)
+    wall = time.perf_counter() - t0
+    n_walk = launch_counts()["sample_walk"]
+    single = list(sample_device.sample_batch_device(*args))
+    if drawn != single or (dev.type == "cuda" and n_walk != 2):
+        raise AssertionError(f"sharded_sample_batch: {sum(x != y for x, y in zip(drawn, single))} "
+                             f"samples differ from sample_batch_device ({n_walk} walks)")
+    _check_rows([("anc", d.seqs[0], "des", d.seqs[1])] * n,
+                [{"alignment": {"anc": s0, "des": s1}, "score": sc} for s0, s1, sc in drawn])
+    done.append(f"sharded_sample_batch {len(d.seqs[0])} x {len(d.seqs[1])} nt x {n} "
+                f"({wall:.2f} s, one walk a lane) op for op equal to sample_batch_device")
+    del mdi
+
+    t0 = time.perf_counter()
+    summary = dryrun_mod.dryrun_multichip(LANES)
+    done.append(f"{summary} ({time.perf_counter() - t0:.2f} s)")
+    for line in done:
+        say("multi", f"[{card}] {line}")
+
+
+def _multihost_run(dev, tmp, name, named, model, rejected=()):
+    """batch over `named` in one process (this one) and in two coordinated
+    processes of the CLI (batch --multihost over gloo) on the card: every
+    merged row byte-equal to the one-process row for its pair (the whole
+    file byte-equal where no pair is rejected: a batch writes a chunk's
+    rejected pairs first, so a rejected pair in the second shard moves the
+    rows), the scores manifest equal to the rows with null where a pair was
+    rejected, and each process's kernels launched."""
+    src = Path(tmp) / f"{name}.fasta"
+    src.write_text("".join(f">{na}\n{a}\n>{nd}\n{b}\n" for na, a, nd, b in named))
+    single, merged = Path(tmp) / f"{name}.one.jsonl", Path(tmp) / f"{name}.jsonl"
+    rejected = list(rejected)
+    argv = ["batch", str(src), "-m", model, "--device", dev.type]
+    if cli.main(argv + ["-o", str(single)]) != 0:
+        raise AssertionError(f"batch -m {model} failed")
+    port = _free_port()
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", CLI_WITH_COUNTS, *argv, "-o", str(merged), "--multihost",
+         "--coordinator", f"localhost:{port}", "--nproc", "2", "--pid", str(pid)],
+        cwd=str(ROOT), stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for pid in (0, 1)]
+    try:
+        outs = [p.communicate(timeout=300) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    for pid, (p, (_, err)) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            raise AssertionError(f"batch --multihost --pid {pid} exited "
+                                 f"{p.returncode}: {err[-2000:]}")
+    counts = [json.loads(err.strip().splitlines()[-1]) for _, err in outs]
+    kernels = (("triplet_rows", "triplet_walk") if model.startswith("tri")
+               else ("wavefront_fill", "traceback_walk"))
+    if dev.type == "cuda" and any(c[k] == 0 for c in counts for k in kernels):
+        raise AssertionError(f"batch --multihost -m {model}: launches {counts}")
+    one = {json.loads(line)["pair"]: line for line in single.read_text().splitlines()}
+    two = {json.loads(line)["pair"]: line for line in merged.read_text().splitlines()}
+    if len(one) != len(named) or two != one:
+        raise AssertionError(f"batch --multihost -m {model}: "
+                             f"{sum(two.get(i) != x for i, x in one.items())} merged rows "
+                             f"differ from one process's")
+    errors = sorted(i for i, line in one.items() if "error" in json.loads(line))
+    if errors != rejected:
+        raise AssertionError(f"batch -m {model}: rejected pairs {errors}, not {rejected}")
+    same_bytes = merged.read_bytes() == single.read_bytes()
+    if not errors and not same_bytes:
+        raise AssertionError(f"batch --multihost -m {model}: the merged file differs "
+                             f"from one process's")
+    man = json.loads((Path(tmp) / f"{name}.jsonl.scores.json").read_text())
+    want = [json.loads(one[i]).get("score") for i in range(len(named))]
+    if man["n_pairs"] != len(named) or man["scores"] != want:
+        raise AssertionError(f"batch --multihost -m {model}: the scores manifest "
+                             f"does not match the rows")
+    return (f"-m {model}, {len(named)} pairs (rejected {errors}, null in the manifest): "
+            f"two processes {wall:.2f} s wall, launches "
+            f"{[{k: c[k] for k in kernels} for c in counts]}; every merged row of "
+            f"{merged.stat().st_size} bytes equal to one process's for its pair (the "
+            f"whole file byte-equal: {same_bytes}), the manifest's "
+            f"{len(man['scores'])} scores its rows'")
+
+
+def multi_processes(dev, card, main_run):
+    """Two processes of batch --multihost on the one card, under mar-mg and
+    under tri-mg with a rejected pair (an early stop codon) in each
+    process's shard, so that rank 1's null score goes through the
+    allgather."""
+    n_tri, nt, seed = MULTIHOST_TRIPLET
+    pairs = make_pairs(n_tri, np.random.default_rng(seed), length_mix=[(nt, 1.0)])
+    rejected = [0, n_tri // 2 + 3]
+    for i in rejected:
+        a, b = pairs[i]
+        pairs[i] = (a[:3] + "TAA" + a[6:], b)
+    tri = [(f"anc{i}", a, f"des{i}", b) for i, (a, b) in enumerate(pairs)]
+    with tempfile.TemporaryDirectory() as tmp:
+        for line in (_multihost_run(dev, tmp, "mix",
+                                    main_run["named"][:MULTIHOST_MIX_PAIRS], "mar-mg"),
+                     _multihost_run(dev, tmp, "tri", tri, "tri-mg", rejected)):
+            say("multi", f"[{card}] batch --multihost {line}")
+
+
+def phase_multi(dev, card, main_run, long_run):
+    t0 = time.perf_counter()
+    run = multi_main_path(dev, card, main_run)
+    multi_mesh(dev, card, long_run)
+    multi_processes(dev, card, main_run)
+    say("multi", f"phase 10 took {time.perf_counter() - t0:.1f} s")
+    return run
+
+
 def main() -> int:
     dev, card = phase_device()
     phase_build()
@@ -2674,6 +2977,7 @@ def main() -> int:
     sample_run = phase_sample(dev, card)
     phase_msa(dev, card)
     triplet_run = phase_triplet(dev, card)
+    phase_multi(dev, card, main_run, long_run)
     phase_numbers(card, main_shape, main_run, long_run, score_cell(dev), sample_run,
                   triplet_run, {"fill": fill_err, "walk": walk_err, "segment": seg_err,
                    "segment_walk": seg_walk_err, "forward": fwd_err,

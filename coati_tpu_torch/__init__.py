@@ -9,11 +9,13 @@ module that touches a device. Ported: all seven verbs of the CLI; marginal
 Viterbi alignment of pair batches (`alignpair`, `batch`, `msa`), long pairs
 through the segmented two-pass path, score-only Viterbi, sampling from the
 Forward distribution (`sample`), and the triplet models tri-mg, tri-ecm and
-dna (`alignpair`, `batch`) with their own segmented path; every device kernel
-of the JAX package has a hand-written CUDA kernel here with a plain PyTorch
-version beside it. Still to port (ROADMAP.md, "Modules to port"): multi-device
-and --multihost (item 10), the benchmark (item 6), --trace-dir and the tools
-(item 11).
+dna (`alignpair`, `batch`) with their own segmented path; several devices
+(the engine's chunks round-robin over a list of lanes, the mesh entry points
+of `parallel/mesh.py`) and several processes (`batch --multihost` on
+torch.distributed); every device kernel of the JAX package has a hand-written
+CUDA kernel here with a plain PyTorch version beside it. Still to port
+(ROADMAP.md, "Modules to port"): the benchmark (item 6), --trace-dir and the
+tools (item 11).
 """
 
 __version__ = "0.1.0"

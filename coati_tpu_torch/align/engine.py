@@ -9,7 +9,9 @@ where the native library builds the aligned strings. A pair whose backpointer st
 pass the budget of align/longseq.py goes, grouped with pairs of similar
 size, through the segmented two-pass path there. Every chunk and then every
 group is enqueued before the first result is read, so the device works
-while the host pads the next chunk and builds strings. Score-only Viterbi
+while the host pads the next chunk and builds strings. Given several lanes
+(device.resolve_devices), the chunks go round-robin over them, each enqueued
+on its lane's stream, and the long pairs to the first. Score-only Viterbi
 keeps no backpointers and plans its launches by bytes (score_chunks).
 """
 
@@ -22,7 +24,7 @@ import numpy as np
 import torch
 
 from coati_tpu_torch.align import longseq
-from coati_tpu_torch.device import download, resolve_device, upload
+from coati_tpu_torch.device import download, resolve_devices, upload
 from coati_tpu_torch.kernels import traceback_walk as _walk
 from coati_tpu_torch.kernels import wavefront_fill as _fill
 from coati_tpu_torch.kernels import wavefront_score as _score
@@ -161,6 +163,18 @@ def _long_groups(long_pairs, enc_as, enc_bs, k):
     return groups
 
 
+def params_by_device(lanes, table, gap) -> dict:
+    """The model's Params on each distinct device of `lanes`, copied once a
+    device (lanes on one device share them); every lane's stream waits for
+    the copies and holds them (Lane.share)."""
+    params = {}
+    for lane in lanes:
+        if lane.device not in params:
+            params[lane.device] = params_from_numpy(table, gap, lane.device)
+        lane.share(params[lane.device].table, params[lane.device].gap_consts)
+    return params
+
+
 def viterbi_align_batch(
     enc_as,
     enc_bs,
@@ -177,6 +191,11 @@ def viterbi_align_batch(
     """Align many pairs: bucket by padded shape, run the fused fill + walk
     per chunk, build strings on the host. Results keep input order.
 
+    device: a device name, or a list of them or of lanes
+    (device.resolve_devices): the chunks go round-robin over the lanes, as
+    coati_tpu/align/engine.py sends them over its devices, and long pairs
+    to the first lane. A pair's result does not depend on its chunk or lane.
+
     table_idx: optional per-pair index into a stacked table [G, 183, 15],
     folded into the ancestor encoding (enc_a + 183*idx against the
     flattened [G*183, 15] table).
@@ -184,7 +203,7 @@ def viterbi_align_batch(
     long_slots: descendants needing more slots than this take the segmented
     long-pair path; by default a pair takes it when its backpointer stack
     would pass longseq.BP_BUDGET_BYTES."""
-    dev = resolve_device(device)
+    lanes = resolve_devices(device)
     k = int(gap.len)
     table32 = np.asarray(table, dtype=np.float32)
     if table_idx is not None:
@@ -195,7 +214,7 @@ def viterbi_align_batch(
             np.asarray(a, dtype=np.int32) + np.int32(nrows * int(table_idx[i]))
             for i, a in enumerate(enc_as)
         ]
-    params = params_from_numpy(table32, gap, dev)
+    params = params_by_device(lanes, table32, gap)
 
     buckets: dict[tuple[int, int], list[int]] = collections.defaultdict(list)
     long_pairs: list[int] = []
@@ -207,28 +226,42 @@ def viterbi_align_batch(
         qb = max(_round_up(len(b), quantum), quantum)
         buckets[(qa, qb)].append(idx)
 
-    # phase 1: enqueue every chunk; phase 2: read results in launch order
+    # phase 1: enqueue every chunk, on the next lane in turn (with several
+    # lanes a bucket is cut so that every lane gets work); phase 2: read
+    # results in launch order
     inflight = []
+    n_launched = 0
     for (qa, qb), idxs in buckets.items():
         max_b = max(1, max_batch_cells // ((qa + k) * (qb + k)))
+        if len(lanes) > 1:
+            max_b = min(max_b, -(-len(idxs) // len(lanes)))
         for s in range(0, len(idxs), max_b):
             chunk = idxs[s : s + max_b]
             aseq, bseq, la, lb = _pad_batch(
                 [enc_as[i] for i in chunk], [enc_bs[i] for i in chunk], quantum
             )
-            params.check_codes(aseq, bseq)
-            ops, score = fused_align_ops(
-                *(upload(x, dev) for x in (aseq, bseq, la, lb)),
-                params.table, params.gap_consts, k=k,
-                max_steps=max(1, int(np.max(la + lb))),
-            )
-            inflight.append((chunk, download(ops, score)))
+            lane = lanes[n_launched % len(lanes)]
+            n_launched += 1
+            p = params[lane.device]
+            p.check_codes(aseq, bseq)
+            with lane.context():
+                ops, score = fused_align_ops(
+                    *(upload(x, lane.device) for x in (aseq, bseq, la, lb)),
+                    p.table, p.gap_consts, k=k,
+                    max_steps=max(1, int(np.max(la + lb))),
+                )
+                inflight.append((chunk, download(ops, score)))
+            lane.chunks += 1
 
-    # long pairs after the buckets, so the card works on those while the
-    # host pads the groups
+    # long pairs after the buckets, on the first lane, so the card works on
+    # those while the host pads the groups
+    first = lanes[0]
     for grp in _long_groups(long_pairs, enc_as, enc_bs, k):
-        inflight.append((grp, longseq.enqueue_long_group(
-            [enc_as[i] for i in grp], [enc_bs[i] for i in grp], params, dev)))
+        with first.context():
+            inflight.append((grp, longseq.enqueue_long_group(
+                [enc_as[i] for i in grp], [enc_bs[i] for i in grp],
+                params[first.device], first.device)))
+        first.chunks += 1
 
     results: list[AlignResult | None] = [None] * len(enc_as)
     for chunk, ((ops, score), ev) in inflight:
@@ -308,34 +341,51 @@ def score_chunks(lens_a, lens_b, k: int, quantum: int = 96,
     return chunks
 
 
-def viterbi_scores_batch(enc_as, enc_bs, table, gap, quantum: int = 96,
-                         max_batch_bytes: int = SCORE_BATCH_BYTES,
-                         device="cuda") -> np.ndarray:
-    """Score-only Viterbi (no traceback storage), O(NA) device memory a
-    block boundary: the [n] f32 scores viterbi_align_batch would give, for
-    pairs of any length. Launches as score_chunks plans them; every chunk is
-    enqueued before the first score is read."""
-    dev = resolve_device(device)
-    k = int(gap.len)
-    params = params_from_numpy(table, gap, dev)
+def enqueue_scores(enc_as, enc_bs, k, lane, params, quantum: int = 96,
+                   max_batch_bytes: int = SCORE_BATCH_BYTES) -> list:
+    """Phase 1 of viterbi_scores_batch on one lane: every launch that
+    score_chunks plans, enqueued with its upload and download. Returns
+    [(pair indices, what device.download returned), ...]."""
+    dev = lane.device
+    p = params[dev]
     sms = (torch.cuda.get_device_properties(dev).multi_processor_count
            if dev.type == "cuda" else 132)
-
     inflight = []
     for chunk in score_chunks([len(a) for a in enc_as], [len(b) for b in enc_bs],
                               k, quantum, max_batch_bytes, sms):
         aseq, bseq, la, lb = _pad_batch(
             [enc_as[i] for i in chunk], [enc_bs[i] for i in chunk], quantum
         )
-        params.check_codes(aseq, bseq)
-        corners = _score.wavefront_score(
-            *(upload(x, dev) for x in (aseq, bseq, la, lb)),
-            params.table, params.gap_consts, k=k)
-        inflight.append((chunk, download(corners)))
+        p.check_codes(aseq, bseq)
+        with lane.context():
+            corners = _score.wavefront_score(
+                *(upload(x, dev) for x in (aseq, bseq, la, lb)),
+                p.table, p.gap_consts, k=k)
+            inflight.append((chunk, download(corners)))
+    return inflight
 
-    scores = np.zeros(len(enc_as), dtype=np.float32)
+
+def collect_scores(inflight, n: int) -> np.ndarray:
+    """Phase 2 of viterbi_scores_batch: the [n] f32 scores, in input order."""
+    scores = np.zeros(n, dtype=np.float32)
     for chunk, ((corners,), ev) in inflight:
         if ev is not None:
             ev.synchronize()
         scores[chunk] = corners.numpy().max(axis=0)
     return scores
+
+
+def viterbi_scores_batch(enc_as, enc_bs, table, gap, quantum: int = 96,
+                         max_batch_bytes: int = SCORE_BATCH_BYTES,
+                         device="cuda") -> np.ndarray:
+    """Score-only Viterbi (no traceback storage), O(NA) device memory a
+    block boundary: the [n] f32 scores viterbi_align_batch would give, for
+    pairs of any length. Launches as score_chunks plans them; every chunk is
+    enqueued before the first score is read. Runs on the first lane of
+    `device` (resolve_devices), as coati_tpu's runs on one device;
+    parallel.mesh.sharded_viterbi_scores spreads it over lanes."""
+    lane = resolve_devices(device)[0]
+    params = params_by_device([lane], table, gap)
+    inflight = enqueue_scores(enc_as, enc_bs, int(gap.len), lane, params,
+                              quantum, max_batch_bytes)
+    return collect_scores(inflight, len(enc_as))

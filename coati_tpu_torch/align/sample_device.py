@@ -129,6 +129,38 @@ def decode_sample_ops(ops_n, a: str, b: str, k: int):
             s1.astype(np.uint8).tobytes().decode("ascii"))
 
 
+def walk_inputs(mdi, corners, enc_a, enc_b, table, gap):
+    """What the walk reads beside mdi, on mdi's device: (table [rows, 15] f32,
+    gap constants [4], enc_a, enc_b int32), with the terminal-adjusted
+    corners (cm, cd, ci) written into mdi's corner cell in place; checks
+    mdi's shape [R, Cc, 3]."""
+    dev = mdi.device
+    k = int(gap.len)
+    R, Cc = len(enc_a) + k, len(enc_b) + k
+    if tuple(mdi.shape) != (R, Cc, 3):
+        raise ValueError(f"mdi must be [{R}, {Cc}, 3], got {tuple(mdi.shape)}")
+    mdi[R - 1, Cc - 1] = torch.tensor([float(c) for c in corners],
+                                      dtype=torch.float32, device=dev)
+    return (torch.from_numpy(
+                np.ascontiguousarray(table, dtype=np.float32).reshape(-1, 15)).to(dev),
+            torch.from_numpy(gap_consts_array(gap)).to(dev),
+            torch.from_numpy(np.ascontiguousarray(enc_a, dtype=np.int32)).to(dev),
+            torch.from_numpy(np.ascontiguousarray(enc_b, dtype=np.int32)).to(dev))
+
+
+def sample_uniforms(dev, seed_u64: int, n_steps: int, n: int,
+                    chunk: int = SAMPLE_CHUNK):
+    """The walks' uniforms for n samples, `chunk` columns a tensor
+    [n_steps + 1, <= chunk] f32 on dev, from one torch.Generator on dev
+    seeded from seed_u64: the same numbers for a seed on the same kind of
+    device, however the samples are then split."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed_u64 & 0x7FFFFFFFFFFFFFFF)
+    for done in range(0, n, chunk):
+        yield torch.rand((n_steps + 1, min(chunk, n - done)), generator=gen,
+                         dtype=torch.float32, device=dev)
+
+
 def sample_batch_device(mdi, corners, enc_a, enc_b, table, a: str, b: str,
                         gap, seed_u64: int, n: int, chunk: int = SAMPLE_CHUNK):
     """Draw n alignments from the Forward distribution on mdi's device.
@@ -140,26 +172,11 @@ def sample_batch_device(mdi, corners, enc_a, enc_b, table, a: str, b: str,
     from coati_tpu_torch import native
     from coati_tpu_torch.kernels.sample_walk import sample_walk
 
-    dev = mdi.device
     k = int(gap.len)
-    R, Cc = len(enc_a) + k, len(enc_b) + k
-    if tuple(mdi.shape) != (R, Cc, 3):
-        raise ValueError(f"mdi must be [{R}, {Cc}, 3], got {tuple(mdi.shape)}")
-    mdi[R - 1, Cc - 1] = torch.tensor([float(c) for c in corners],
-                                      dtype=torch.float32, device=dev)
-    n_steps = (R - k) + (Cc - k)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(seed_u64 & 0x7FFFFFFFFFFFFFFF)
-    table_t = torch.from_numpy(
-        np.ascontiguousarray(table, dtype=np.float32).reshape(-1, 15)).to(dev)
-    gc = torch.from_numpy(gap_consts_array(gap)).to(dev)
-    ea = torch.from_numpy(np.ascontiguousarray(enc_a, dtype=np.int32)).to(dev)
-    eb = torch.from_numpy(np.ascontiguousarray(enc_b, dtype=np.int32)).to(dev)
-
-    for done in range(0, n, chunk):
-        nb = min(chunk, n - done)
-        uniforms = torch.rand((n_steps + 1, nb), generator=gen,
-                              dtype=torch.float32, device=dev)
+    table_t, gc, ea, eb = walk_inputs(mdi, corners, enc_a, enc_b, table, gap)
+    n_steps = len(enc_a) + len(enc_b)
+    for uniforms in sample_uniforms(mdi.device, seed_u64, n_steps, n, chunk):
+        nb = uniforms.shape[1]
         ops, scores = sample_walk(mdi, ea, eb, table_t, gc, uniforms, k=k)
         ops = ops.cpu().numpy()
         scores = scores.cpu().numpy()

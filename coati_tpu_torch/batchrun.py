@@ -74,16 +74,18 @@ def batch_align(
     aln; write one JSON line per pair to out_stream; record completed indices
     in `manifest`. Returns the number of pairs aligned.
 
-    The marginal models go through align/engine.py viterbi_align_batch, the
-    triplet models (tri-mg, tri-ecm, dna) through
+    The marginal models go through align/engine.py viterbi_align_batch,
+    whose chunks go round-robin over the lanes of `device` (a name, or a
+    list of names or lanes: device.resolve_devices), the triplet models
+    (tri-mg, tri-ecm, dna) on the first lane through
     triplet_wavefront.triplet_align_batch, which cuts a chunk into
     sub-batches that fit the device.
 
     meter: optional profiling.ThroughputMeter."""
     from coati_tpu_torch.align.engine import AlignResult, viterbi_align_batch
-    from coati_tpu_torch.device import resolve_device
+    from coati_tpu_torch.device import resolve_devices
 
-    dev = resolve_device(device)
+    lanes = resolve_devices(device)
     utils.set_subst(aln)
     triplet_model = None
     if not aln.is_marginal():
@@ -131,13 +133,14 @@ def batch_align(
 
             def run_chunk():
                 if triplet_model is not None:
-                    trip = triplet_align_batch(
-                        triplet_model, list(zip(astrs, bstrs)), device=dev,
-                        enc=list(zip(enc_as, enc_bs)))
+                    with lanes[0].context():
+                        trip = triplet_align_batch(
+                            triplet_model, list(zip(astrs, bstrs)),
+                            device=lanes[0].device, enc=list(zip(enc_as, enc_bs)))
                     return [AlignResult(s0, s1, sc) for s0, s1, sc in trip]
                 return viterbi_align_batch(
                     enc_as, enc_bs, astrs, bstrs, aln.subst_matrix, aln.gap,
-                    device=dev,
+                    device=lanes,
                 )
 
             if meter is not None:
@@ -189,28 +192,81 @@ def cmd_batch(argv) -> int:
     p.add_argument("-k", "--gap-len", type=int, default=1)
     p.add_argument("-w", "--omega", type=float, default=0.2)
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
-                   help="device to align on (default: cuda)")
+                   help="device to align on: cuda, every local card "
+                   "(COATI_TPU_MAX_DEVICES caps them), or cpu (default: cuda)")
     p.add_argument("--trace-dir", default="", help="not yet ported")
-    p.add_argument("--multihost", action="store_true", help="not yet ported")
+    p.add_argument("--multihost", action="store_true",
+                   help="Multi-process mode: join a torch.distributed (gloo) "
+                   "group, align only this process's shard of the pair "
+                   "stream, then merge: scores are allgathered into a global "
+                   "manifest and process 0 concatenates the per-process shard "
+                   "files when they share a filesystem")
+    p.add_argument("--coordinator", default=None,
+                   help="torch.distributed rendezvous address (host:port; "
+                   "default: the env:// variables when set, else one process)")
+    p.add_argument("--nproc", type=int, default=None,
+                   help="torch.distributed process count")
+    p.add_argument("--pid", type=int, default=None,
+                   help="torch.distributed process index")
     args = p.parse_args(argv)
-    if args.trace_dir or args.multihost:
+    if args.trace_dir:
         raise NotImplementedError(
-            "--trace-dir and --multihost are not yet ported to coati_tpu_torch "
-            "(ROADMAP.md, Modules to port, items 11 and 10)")
+            "--trace-dir is not yet ported to coati_tpu_torch "
+            "(ROADMAP.md, Modules to port, item 11)")
 
     aln = alignment_params(args.model, args.br_len, args.omega, args.gap_open,
                            args.gap_extend, args.gap_len)
 
     pairs = read_pairs_fasta(args.input)
-    out = open(args.output, "w" if not args.manifest else "a") \
-        if args.output else sys.stdout
-    meter = ThroughputMeter()
-    try:
-        n = batch_align(aln, pairs, out, manifest=args.manifest, meter=meter,
-                        device=args.device)
-    finally:
+    output_base = args.output
+    n_total = len(pairs)
+    shard_lo = 0
+    started = False
+    if args.multihost:
+        # each process aligns a contiguous shard; the merge below collates
+        from coati_tpu_torch.parallel.multihost import (
+            host_shard,
+            init_distributed,
+            rank,
+            shard_bounds,
+        )
+
+        started = init_distributed(args.coordinator, args.nproc, args.pid)
+        shard_lo, _ = shard_bounds(n_total)
+        pairs = host_shard(pairs)
         if args.output:
-            out.close()
+            args.output = f"{args.output}.{rank()}"
+        if args.manifest:
+            args.manifest = f"{args.manifest}.{rank()}"
+    try:
+        out = open(args.output, "w" if not args.manifest else "a") \
+            if args.output else sys.stdout
+        meter = ThroughputMeter()
+        try:
+            n = batch_align(aln, pairs, out, manifest=args.manifest, meter=meter,
+                            index_offset=shard_lo, device=args.device)
+        finally:
+            if args.output:
+                out.close()
+
+        if args.multihost:
+            from coati_tpu_torch.parallel.multihost import merge_multihost_outputs
+
+            local_scores = np.full(len(pairs), np.nan, np.float32)
+            if args.output:
+                with open(args.output) as f:
+                    for line in f:
+                        row = json.loads(line)
+                        if "score" in row:
+                            local_scores[row["pair"] - shard_lo] = row["score"]
+            _, merged = merge_multihost_outputs(output_base, local_scores, n_total)
+            if merged:
+                print(f"merged {n_total}-pair output -> {merged}", file=sys.stderr)
+    finally:
+        if started:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
     stats = meter.summary()
     print(f"aligned {n} pairs: {stats['cells_per_sec'] / 1e6:.0f} Mcells/s, "
           f"{stats['pairs_per_sec']:.1f} pairs/s "

@@ -22,7 +22,7 @@ import numpy as np
 import torch
 
 from coati_tpu_torch import constants as C
-from coati_tpu_torch.device import resolve_device, upload
+from coati_tpu_torch.device import download, resolve_device, upload
 from coati_tpu_torch.kernels import triplet_rows as rows_k
 from coati_tpu_torch.kernels import triplet_walk as walk_k
 from coati_tpu_torch.kernels.triplet_rows import NEG, triplet_rows_plain  # noqa: F401
@@ -289,28 +289,47 @@ def _sub_batches(enc):
         yield cur, False
 
 
+def _group_rows(model, enc, dev):
+    """Pack and upload one sub-batch of encoded pairs and enqueue its forward
+    rows: ((anc, des, ins_off, lens_t, lens_m) on dev, tables, grid, amax)."""
+    anc_p, des_p, lens_t, lens_m, ins_off, tables, _ = _pack_batch(
+        model, [e[0] for e in enc], [e[1] for e in enc], dev)
+    args = tuple(upload(x, dev) for x in (anc_p, des_p, ins_off, lens_t, lens_m))
+    return (args, tables, *_triplet_rows(*args, *tables))
+
+
+def enqueue_group(model, enc, dev):
+    """One sub-batch of encoded pairs through the forward rows and the device
+    traceback on the current stream, and the copy of the results back:
+    returns what device.download returns for (run-encoded ops, state,
+    score). Nothing waits for the device but the tables' copies."""
+    args, tables, grid, amax = _group_rows(model, enc, dev)
+    return download(*_triplet_traceback(grid, amax, *args, *tables))
+
+
+def decode_group(pairs, downloaded):
+    """[(seq0, seq1, score), ...] of `pairs` from what enqueue_group
+    returned for them, once the device is done."""
+    (ops, state, score), ev = downloaded
+    if ev is not None:
+        ev.synchronize()
+    ops, state, score = (x.numpy() for x in (ops, state, score))
+    out = []
+    for b, (anc, des) in enumerate(pairs):
+        s0, s1 = _decode_ops(anc, des, ops[:, b], int(state[0, b]),
+                             int(state[1, b]))
+        out.append((s0, s1, float(-score[b])))
+    return out
+
+
 def _align_group(model, pairs, enc, traceback, dev):
     """One sub-batch through the forward rows and the traceback."""
     from coati_tpu_torch.triplet_hmm import _DP, traceback_from_boundaries
 
-    anc_p, des_p, lens_t, lens_m, ins_off, tables, _ = _pack_batch(
-        model, [e[0] for e in enc], [e[1] for e in enc], dev)
-    aj, dj, io, lt, lm = (upload(x, dev) for x in (anc_p, des_p, ins_off,
-                                                    lens_t, lens_m))
-    grid, amax = _triplet_rows(aj, dj, io, lt, lm, *tables)
-
     if traceback == "device":
-        ops, state, score = _triplet_traceback(grid, amax, aj, dj, io, lt, lm,
-                                               *tables)
-        ops, state, score = (x.cpu().numpy() for x in (ops, state, score))
-        out = []
-        for b, (anc, des) in enumerate(pairs):
-            s0, s1 = _decode_ops(anc, des, ops[:, b], int(state[0, b]),
-                                 int(state[1, b]))
-            out.append((s0, s1, float(-score[b])))
-        return out
+        return decode_group(pairs, enqueue_group(model, enc, dev))
 
-    grid = grid.cpu().numpy()
+    grid = _group_rows(model, enc, dev)[2].cpu().numpy()
     out = []
     for b, ((anc, des), (ea, ed)) in enumerate(zip(pairs, enc)):
         ncb, Ccb = len(ea), len(ed) + 1

@@ -76,8 +76,10 @@ def test_batch_matches_jax_cli(tmp_path):
 
 def test_not_ported_verbs_and_models_exit_1(tmp_path, capsys):
     """Every verb and every model is ported now; what is left says so and
-    exits 1: --multihost. msa and sample take marginal models only, as in
-    the JAX package; alignpair takes the triplet models."""
+    exits 1: --trace-dir. batch --multihost without a coordinator is one
+    process and writes what batch writes. msa and sample take marginal
+    models only, as in the JAX package; alignpair takes the triplet
+    models."""
     src = tmp_path / "pair.fasta"
     src.write_text(PAIR)
     assert sorted(torch_cli.VERBS) == sorted(jax_cli.VERBS)
@@ -91,7 +93,19 @@ def test_not_ported_verbs_and_models_exit_1(tmp_path, capsys):
                            "--device", "cpu", "-o", str(out)]) == 0
     assert "not yet ported" not in capsys.readouterr().err
     assert "CT----ATAGTG" in out.read_text()
-    assert torch_cli.main(["batch", str(src), "--multihost",
+    pairs = tmp_path / "pairs.fasta"
+    pairs.write_text(PAIRS)
+    outs = []
+    for name, extra in (("one.jsonl", []), ("multi.jsonl", ["--multihost"])):
+        out = tmp_path / name
+        assert torch_cli.main(["batch", str(pairs), *extra, "--device", "cpu",
+                               "-o", str(out)]) == 0
+        outs.append(out.read_bytes())
+    assert outs[0] == outs[1] and outs[0]
+    assert (tmp_path / "multi.jsonl.0").read_bytes() == outs[0]
+    assert json.loads((tmp_path / "multi.jsonl.scores.json").read_text())["n_pairs"] == 4
+    capsys.readouterr()
+    assert torch_cli.main(["batch", str(src), "--trace-dir", str(tmp_path / "tr"),
                            "--device", "cpu"]) == 1
     assert "not yet ported" in capsys.readouterr().err
 
@@ -107,8 +121,9 @@ def _msa_inputs(tmp_path):
 
 
 def test_port_never_imports_jax(tmp_path):
-    """Importing the port, aligning one pair with alignpair and a stream with
-    batch under a marginal and a triplet model (the latter through the batched
+    """Importing the port and its parallel package, aligning one pair with
+    alignpair and a stream with batch (and batch --multihost) under a
+    marginal and a triplet model (the latter through the batched
     engine and the segmented path too), sampling on both routes and one msa on
     the CPU leaves jax, the JAX
     package coati_tpu and bench out of sys.modules (a subprocess, since this
@@ -125,10 +140,15 @@ def test_port_never_imports_jax(tmp_path):
     code = (
         "import sys\n"
         "import coati_tpu_torch\n"
+        "import coati_tpu_torch.parallel.dryrun\n"
+        "import coati_tpu_torch.parallel.multihost\n"
         "from coati_tpu_torch.cli import main\n"
         f"rc = main(['alignpair', {str(src)!r}, '--device', 'cpu', '-o', {str(out)!r}])\n"
         "assert rc == 0, rc\n"
         f"rc = main(['batch', {str(pairs)!r}, '--device', 'cpu', '-o', {str(rows)!r}])\n"
+        "assert rc == 0, rc\n"
+        f"rc = main(['batch', {str(pairs)!r}, '--device', 'cpu', '--multihost',\n"
+        f"           '-o', {str(tmp_path / 'multi.jsonl')!r}])\n"
         "assert rc == 0, rc\n"
         f"rc = main(['sample', {str(src)!r}, '-n', '3', '-s', '5', '--device', 'cpu',\n"
         f"           '-o', {str(samples[0])!r}])\n"
@@ -161,6 +181,7 @@ def test_port_never_imports_jax(tmp_path):
     assert "CT----ATAGTG" in out.read_text()
     assert "CT----ATAGTG" in (tmp_path / "tri.fasta").read_text()
     assert len(rows.read_text().splitlines()) == 4
+    assert (tmp_path / "multi.jsonl").read_bytes() == rows.read_bytes()
     assert len((tmp_path / "tri.jsonl").read_text().splitlines()) == 4
     assert all(len(json.loads(path.read_text())) == 3 for path in samples)
     assert msa_out.read_text().count(">") == 5
