@@ -10,7 +10,7 @@ Phases, each printing lines (any failure raises, exit code non-zero):
 2. build   - nvcc-builds the kernels from coati_tpu_torch/csrc.
 3. kernels - every kernel against its plain PyTorch version on the card.
              Fill (strips, row layout) and whole-stack walk: the B=64 999 nt
-             bucket, k=3 and k=5 ragged, IUPAC codes, stacked table_idx
+             bucket, k=3, 5, 6, 7 and 8 ragged, IUPAC codes, stacked table_idx
              tables (G=3 in shared memory, G=24 read from device memory),
              pairs over 4,096 slots spread over several blocks (C~6,000,
              k=1 and k=3), stripe passes through the edge buffer in one
@@ -56,6 +56,16 @@ Phases, each printing lines (any failure raises, exit code non-zero):
              equals the plain version on the card (strings and f32 scores),
              the CLI's alignpair gives CT----ATAGTG on the reference
              example, both kernels launched.
+   trace   - the CLI's batch --trace-dir over the main mix's first
+             TRACE_PAIRS pairs, after the same batch without it: the bytes
+             equal; one trace file that parses; its kernel events hold the
+             fill's and the walk's kernels, as many launches of each as
+             KernelTimer counted in that run, their summed duration within
+             TRACE_DURATION_TOL of CUDA events around the library's launches.
+             Prints the trace's size, the traced against the untraced wall,
+             the card's busy share and the host's functions by self time;
+             then the same, unchecked, for sample at 9,999 nt x 200 and
+             batch -m tri-mg at 64 x 999 nt.
 5. long    - batch_align over 1,000 pairs of the same mix plus four pairs of
              29,397-31,998 nt, routed by the default thresholds, and
              viterbi_scores_batch over the same pairs; counters reset just
@@ -135,8 +145,10 @@ Phases, each printing lines (any failure raises, exit code non-zero):
              op for op against sample_batch_device, dryrun_multichip(LANES).
              Then batch --multihost in two processes of the CLI (gloo, a
              free localhost port) on the card, over 2,000 pairs of the main
-             mix under mar-mg and 16 pairs of 999 nt under tri-mg with a
-             rejected pair in each shard: each process's kernels launched,
+             mix under mar-mg (LOCAL_RANK and LOCAL_WORLD_SIZE set, as
+             torchrun sets them) and 16 pairs of 999 nt under tri-mg (not
+             set) with a rejected pair in each shard: each process on the
+             cards multihost.local_devices gives it, its kernels launched,
              every merged row byte-equal to a one-process run's row for its
              pair (under mar-mg the whole file), the scores manifest equal
              to its rows with null at the rejected pairs. Prints its
@@ -154,6 +166,7 @@ import functools
 import hashlib
 import io
 import json
+import os
 import subprocess
 import sys
 import tempfile
@@ -167,6 +180,7 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from coati_tpu_torch import batchrun, cli, driver, triplet_hmm, utils  # noqa: E402
+from coati_tpu_torch import profiling  # noqa: E402
 from coati_tpu_torch import device as device_mod  # noqa: E402
 from coati_tpu_torch import triplet_wavefront as tw  # noqa: E402
 from coati_tpu_torch.align import engine, longseq, sample_device  # noqa: E402
@@ -192,10 +206,10 @@ from coati_tpu_torch.params import alignment_params, params_from_numpy  # noqa: 
 from coati_tpu_torch.parallel import dryrun as dryrun_mod  # noqa: E402
 from coati_tpu_torch.parallel import mesh as mesh_mod  # noqa: E402
 from coati_tpu_torch.structs import SeqData  # noqa: E402
+from coati_tpu_torch.tools.common import elapsed_ms  # noqa: E402
+from coati_tpu_torch.tools.inputs import LENGTH_MIX, descendant, make_pairs  # noqa: E402,F401
 from coati_tpu_torch.utils import encode_marginal  # noqa: E402
 
-# the length classes (nt) and weights of the repo's bench headline
-LENGTH_MIX = [(156, 0.35), (471, 0.30), (999, 0.20), (1500, 0.15)]
 N_PAIRS = 10_000
 # long phase: the ladder's top and the reference's 32 knt benchmark size
 LONG_MIX = [(29397, 0.5), (31998, 0.5)]
@@ -262,6 +276,11 @@ CELL_OPS_TRIPLET = 387
 # add, three I of 4
 CELL_OPS_TRIPLET_WALK = 47
 WARM_RUNS = 5  # timed warm runs of the main path; the first is also checked
+# the trace phase: pairs of the main mix through batch --trace-dir; the trace's
+# fill and walk time against the CUDA events' (relative); host functions shown
+TRACE_PAIRS = 2_000
+TRACE_DURATION_TOL = 0.10
+TRACE_TOP = 8
 # the multi phase: two lanes (two streams) on the one card; warm runs of the
 # main path a lane count, in turns; pairs of the main mix, and (pairs, nt,
 # seed) of a tri-mg stream, for the two-process batch --multihost runs
@@ -335,42 +354,6 @@ KERNELS = {
         "replaces": "coati_tpu/kernels/triplet_pallas.py:454",
     },
 }
-
-
-def make_pairs(n_pairs, rng, length_mix=LENGTH_MIX):
-    """Synthetic homologous pairs: ancestor = random codons, descendant =
-    ancestor with ~5% point mutations and 0-2 indels of 1-9 nt. Draw for
-    draw the pairs of the repo's bench (bench.py make_pairs), so equal seeds
-    give equal pairs."""
-    codon_arr = np.array(CODONS61)
-    lengths = [l for l, _ in length_mix]
-    probs = np.array([p for _, p in length_mix])
-    probs = probs / probs.sum()
-    pairs = []
-    for _ in range(n_pairs):
-        nt_len = int(rng.choice(lengths, p=probs))
-        anc = "".join(rng.choice(codon_arr, size=nt_len // 3))
-        pairs.append((anc, descendant(anc, rng)))
-    return pairs
-
-
-def descendant(anc, rng):
-    """anc with ~5% point mutations and 0-2 indels of 1-9 nt."""
-    nts = np.array(list("ACGT"))
-    des = list(anc)
-    idx = rng.random(len(des)) < 0.05
-    for i in np.nonzero(idx)[0]:
-        des[i] = str(rng.choice(nts))
-    des = "".join(des)
-    for _ in range(int(rng.integers(0, 3))):
-        ln = int(rng.integers(1, 10))
-        pos = int(rng.integers(0, max(1, len(des) - ln)))
-        if rng.random() < 0.5:
-            des = des[:pos] + des[pos + ln:]
-        else:
-            ins = "".join(rng.choice(nts, size=ln))
-            des = des[:pos] + ins + des[pos:]
-    return des
 
 
 def make_msa_inputs(n_leaves, nt, seed):
@@ -520,25 +503,6 @@ T_START = time.perf_counter()
 def say(phase: str, msg: str) -> None:
     """One line of a phase, with the seconds since the script started."""
     print(f"[{phase} +{time.perf_counter() - T_START:.0f}s] {msg}", flush=True)
-
-
-def elapsed_ms(fn, dev, reps: int) -> float:
-    """Mean milliseconds per call of fn() over reps calls after one warm-up:
-    CUDA events on the card, the host clock elsewhere."""
-    fn()
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(reps):
-            fn()
-        end.record()
-        end.synchronize()
-        return start.elapsed_time(end) / reps
-    t0 = time.perf_counter()
-    for _ in range(reps):
-        fn()
-    return (time.perf_counter() - t0) * 1e3 / reps
 
 
 def in_turns(dev, reps, *fns):
@@ -1169,6 +1133,13 @@ def phase_kernels(dev):
                         one_block, seed=2),
              check_case(dev, "k=5 ragged, IUPAC + gap codes", 5, 16, (150, 480),
                         (150, 480), one_block, n_codes=16, seed=8),
+             # the last strip bodies the fill and score kernels are built for
+             check_case(dev, "k=6 ragged", 6, 16, (150, 480), (150, 480),
+                        one_block, seed=12),
+             check_case(dev, "k=7 ragged, IUPAC + gap codes", 7, 16, (150, 480),
+                        (150, 480), one_block, n_codes=16, seed=13),
+             check_case(dev, "k=8 ragged", 8, 16, (150, 480), (150, 480),
+                        one_block, seed=14),
              check_case(dev, "IUPAC + gap codes", 1, 32, (96, 300), (96, 300),
                         one_block, n_codes=16, seed=3),
              check_case(dev, "stacked table_idx G=3", 1, 30, (96, 300),
@@ -1344,6 +1315,158 @@ def phase_main(dev, n_pairs=N_PAIRS):
     return {"warm_s": warm, "cold_s": cold, "launches": launches, "peak": peak,
             "true_cells": true_cells, "timer": timer, "n": n, "named": named,
             "rows": rows}
+
+
+# --- trace ------------------------------------------------------------------
+@contextlib.contextmanager
+def library_events(names):
+    """CUDA events on the current stream around every call of the kernel
+    library's entry points `names`: {name: [(start, end), ...]}. They
+    bracket the launch alone, not the wrapper's Python before it, which a
+    trace of every Python function slows."""
+    lib = _build.load()
+    real = {name: getattr(lib, name) for name in names}
+    events = {name: [] for name in names}
+
+    def timed(name, fn):
+        def call(*args):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            rc = fn(*args)
+            end.record()
+            events[name].append((start, end))
+            return rc
+        return call
+
+    for name, fn in real.items():
+        setattr(lib, name, timed(name, fn))
+    try:
+        yield events
+    finally:
+        for name, fn in real.items():
+            setattr(lib, name, fn)
+
+
+def _traced(what, log_dir, wall, kernels_on_path):
+    """Read the one trace file in log_dir: a line of its size, the card's
+    busy share and the top host functions by self time, as shares of the
+    traced span (the first to the last Python function event: `wall` also
+    holds the profiler's start and the trace's export). Returns (events,
+    {kernel name: (launches, us)})."""
+    files = profiling.trace_files(log_dir)
+    if len(files) != 1:
+        raise AssertionError(f"trace of {what}: {len(files)} files, not one")
+    t0 = time.perf_counter()
+    events = profiling.load_trace(files[0])
+    parse_s = time.perf_counter() - t0
+    kernels = profiling.kernel_totals(events)
+    busy_us = sum(us for _, us in kernels.values())
+    missing = [k for k in kernels_on_path if not any(k in name for name in kernels)]
+    if missing:
+        raise AssertionError(f"trace of {what}: no kernel named {missing}: "
+                             f"{sorted(kernels)[:20]}")
+    host = profiling.host_self_times(events)
+    funcs = [e for e in events if e.get("cat") == "python_function"]
+    span_us = (max(e["ts"] + e.get("dur", 0.0) for e in funcs)
+               - min(e["ts"] for e in funcs))
+    top = "; ".join(f"{name} {us / 1e3:.1f} ms ({us / span_us:.1%}, {n} calls)"
+                    for name, us, n in host[:TRACE_TOP])
+    say("trace", f"{what}: trace {files[0].stat().st_size / 1e6:.1f} MB, {len(events)} "
+        f"events, parsed in {parse_s:.1f} s; traced span {span_us / 1e6:.3f} s of a "
+        f"{wall:.3f} s wall; {sum(n for n, _ in kernels.values())} kernels "
+        f"{busy_us / 1e3:.1f} ms = the card busy {busy_us / span_us:.1%} of the span; "
+        f"host by self time: {top}")
+    return events, kernels
+
+
+def phase_trace(dev, card, main_run):
+    """batch --trace-dir over the main mix's first TRACE_PAIRS pairs: the
+    output byte-equal to the same batch without the trace; one trace file
+    that parses; its kernel events hold the fill's and the walk's kernels,
+    as many launches of each as KernelTimer counted in the same run, their
+    summed duration within TRACE_DURATION_TOL of the CUDA events around the
+    library's launches. Then the same trace, unchecked, of sample at
+    SAMPLE_RUNS[0] and of batch -m tri-mg at TRIPLET_BATCHES[0], for their
+    host profiles by function."""
+    named = main_run["named"][:TRACE_PAIRS]
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        src = tmp / "mix.fasta"
+        src.write_text("".join(f">{na}\n{a}\n>{nd}\n{b}\n" for na, a, nd, b in named))
+        argv = ["batch", str(src), "--device", dev.type]
+        t0 = time.perf_counter()
+        if cli.main(argv + ["-o", str(tmp / "plain.jsonl")]) != 0:
+            raise AssertionError("batch without --trace-dir failed")
+        torch.cuda.synchronize(dev)
+        wall_plain = time.perf_counter() - t0
+        entry = {"wavefront_fill": "coati_wavefront_fill",
+                 "traceback_walk": "coati_traceback_walk"}
+        t0 = time.perf_counter()
+        with KernelTimer(dev) as timer, library_events(list(entry.values())) as lib:
+            rc = cli.main(argv + ["-o", str(tmp / "traced.jsonl"),
+                                  "--trace-dir", str(tmp / "trace")])
+        wall = time.perf_counter() - t0
+        if rc != 0:
+            raise AssertionError(f"batch --trace-dir failed: rc={rc}")
+        if (tmp / "traced.jsonl").read_bytes() != (tmp / "plain.jsonl").read_bytes():
+            raise AssertionError("batch --trace-dir wrote other bytes than batch")
+        names = {"wavefront_fill": "strip_fill_kernel<",
+                 "traceback_walk": "traceback_walk_kernel("}
+        events, kernels = _traced(f"[{card}] batch --trace-dir, {len(named)} pairs of the "
+                                  f"main mix", tmp / "trace", wall, list(names.values()))
+        got = {}
+        for wrapper, pattern in names.items():
+            runs = [v for name, v in kernels.items() if pattern in name]
+            got[wrapper] = (sum(n for n, _ in runs), sum(us for _, us in runs))
+            if got[wrapper][0] != timer.count(wrapper) or timer.count(wrapper) == 0:
+                raise AssertionError(f"trace: {got[wrapper][0]} launches of {pattern}, "
+                                     f"KernelTimer counted {timer.count(wrapper)}")
+        traced_ms = sum(us for _, us in got.values()) / 1e3
+        events_ms = sum(s.elapsed_time(e) for pairs in lib.values() for s, e in pairs)
+        if not abs(traced_ms - events_ms) <= TRACE_DURATION_TOL * events_ms:
+            raise AssertionError(f"trace: fill and walk {traced_ms:.3f} ms in the trace, "
+                                 f"{events_ms:.3f} ms by CUDA events")
+        ranges = profiling.range_totals(events)
+        say("trace", f"[{card}] output byte-equal to batch without the trace "
+            f"({wall_plain:.3f} s wall untraced, {wall:.3f} s traced: "
+            f"{wall / wall_plain:.1f}x); fill {got['wavefront_fill'][0]} and walk "
+            f"{got['traceback_walk'][0]} launches, as KernelTimer counted; their "
+            f"{traced_ms:.3f} ms in the trace against {events_ms:.3f} ms by CUDA events "
+            f"around the launches ({traced_ms / events_ms - 1:+.1%}; around the wrappers "
+            f"{(timer.seconds('wavefront_fill') + timer.seconds('traceback_walk')) * 1e3:.3f} "
+            f"ms); ranges " + ", ".join(f"{name} {n} x {us / 1e3:.1f} ms"
+                                        for name, (n, us) in sorted(ranges.items())))
+        del events
+
+        nt, n, seed = SAMPLE_RUNS[0]
+        (a, b), = make_pairs(1, np.random.default_rng(seed), length_mix=[(nt, 1.0)])
+        src = tmp / "pair.fasta"
+        src.write_text(f">anc\n{a}\n>des\n{b}\n")
+        argv = ["sample", str(src), "-n", str(n), "-s", str(seed), "--device", dev.type,
+                "-o", str(tmp / "samples.json")]
+        if cli.main(argv) != 0:
+            raise AssertionError("sample failed")
+        t0 = time.perf_counter()
+        with profiling.trace(str(tmp / "trace_sample"), dev):
+            cli.main(argv)
+        _traced(f"[{card}] sample, {nt} nt x {n}", tmp / "trace_sample",
+                time.perf_counter() - t0, ["wavefront_", "sample_"])
+
+        n, nt, seed = TRIPLET_BATCHES[0]
+        pairs = make_pairs(n, np.random.default_rng(seed), length_mix=[(nt, 1.0)])
+        src = tmp / "tri.fasta"
+        src.write_text("".join(f">anc{i}\n{a}\n>des{i}\n{b}\n"
+                               for i, (a, b) in enumerate(pairs)))
+        argv = ["batch", str(src), "-m", "tri-mg", "--device", dev.type,
+                "-o", str(tmp / "tri.jsonl")]
+        if cli.main(argv) != 0:
+            raise AssertionError("batch -m tri-mg failed")
+        t0 = time.perf_counter()
+        cli.main(argv + ["--trace-dir", str(tmp / "trace_tri")])
+        _traced(f"[{card}] batch -m tri-mg --trace-dir, {n} pairs of {nt} nt",
+                tmp / "trace_tri", time.perf_counter() - t0,
+                ["triplet_rows", "triplet_walk"])
 
 
 # --- phase 5 ----------------------------------------------------------------
@@ -2714,8 +2837,10 @@ CLI_WITH_COUNTS = """
 import json, sys
 from coati_tpu_torch import cli
 from coati_tpu_torch.kernels import traceback_walk, triplet_rows, triplet_walk, wavefront_fill
+from coati_tpu_torch.parallel.multihost import local_devices
 rc = cli.main(sys.argv[1:])
-print(json.dumps({"wavefront_fill": wavefront_fill.LAUNCHES,
+print(json.dumps({"devices": local_devices(),
+                  "wavefront_fill": wavefront_fill.LAUNCHES,
                   "traceback_walk": traceback_walk.LAUNCHES,
                   "triplet_rows": triplet_rows.LAUNCHES,
                   "triplet_walk": triplet_walk.LAUNCHES}), file=sys.stderr)
@@ -2871,9 +2996,11 @@ def multi_mesh(dev, card, long_run):
         say("multi", f"[{card}] {line}")
 
 
-def _multihost_run(dev, tmp, name, named, model, rejected=()):
+def _multihost_run(dev, tmp, name, named, model, rejected=(), local=False):
     """batch over `named` in one process (this one) and in two coordinated
-    processes of the CLI (batch --multihost over gloo) on the card: every
+    processes of the CLI (batch --multihost over gloo) on the card (local:
+    with LOCAL_RANK and LOCAL_WORLD_SIZE set as torchrun sets them, so each
+    process takes its own cards, here both the one card): every
     merged row byte-equal to the one-process row for its pair (the whole
     file byte-equal where no pair is rejected: a batch writes a chunk's
     rejected pairs first, so a rejected pair in the second shard moves the
@@ -2891,7 +3018,9 @@ def _multihost_run(dev, tmp, name, named, model, rejected=()):
     procs = [subprocess.Popen(
         [sys.executable, "-c", CLI_WITH_COUNTS, *argv, "-o", str(merged), "--multihost",
          "--coordinator", f"localhost:{port}", "--nproc", "2", "--pid", str(pid)],
-        cwd=str(ROOT), stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        cwd=str(ROOT), stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        env={**os.environ, "LOCAL_RANK": str(pid), "LOCAL_WORLD_SIZE": "2"} if local
+        else None)
         for pid in (0, 1)]
     try:
         outs = [p.communicate(timeout=300) for p in procs]
@@ -2910,6 +3039,14 @@ def _multihost_run(dev, tmp, name, named, model, rejected=()):
                else ("wavefront_fill", "traceback_walk"))
     if dev.type == "cuda" and any(c[k] == 0 for c in counts for k in kernels):
         raise AssertionError(f"batch --multihost -m {model}: launches {counts}")
+    cards = [c["devices"] for c in counts]
+    n_cards = torch.cuda.device_count()
+    every = [f"cuda:{q}" for q in range(n_cards)]
+    want = ([every[pid::2] or [every[pid % n_cards]] for pid in (0, 1)] if local
+            else [every, every])
+    if dev.type == "cuda" and cards != want:
+        raise AssertionError(f"batch --multihost -m {model}: the processes took {cards}, "
+                             f"not {want}")
     one = {json.loads(line)["pair"]: line for line in single.read_text().splitlines()}
     two = {json.loads(line)["pair"]: line for line in merged.read_text().splitlines()}
     if len(one) != len(named) or two != one:
@@ -2929,7 +3066,8 @@ def _multihost_run(dev, tmp, name, named, model, rejected=()):
         raise AssertionError(f"batch --multihost -m {model}: the scores manifest "
                              f"does not match the rows")
     return (f"-m {model}, {len(named)} pairs (rejected {errors}, null in the manifest): "
-            f"two processes {wall:.2f} s wall, launches "
+            f"two processes{' (LOCAL_RANK set)' if local else ''} on {cards}, "
+            f"{wall:.2f} s wall, launches "
             f"{[{k: c[k] for k in kernels} for c in counts]}; every merged row of "
             f"{merged.stat().st_size} bytes equal to one process's for its pair (the "
             f"whole file byte-equal: {same_bytes}), the manifest's "
@@ -2950,7 +3088,8 @@ def multi_processes(dev, card, main_run):
     tri = [(f"anc{i}", a, f"des{i}", b) for i, (a, b) in enumerate(pairs)]
     with tempfile.TemporaryDirectory() as tmp:
         for line in (_multihost_run(dev, tmp, "mix",
-                                    main_run["named"][:MULTIHOST_MIX_PAIRS], "mar-mg"),
+                                    main_run["named"][:MULTIHOST_MIX_PAIRS], "mar-mg",
+                                    local=True),
                      _multihost_run(dev, tmp, "tri", tri, "tri-mg", rejected)):
             say("multi", f"[{card}] batch --multihost {line}")
 
@@ -2971,6 +3110,7 @@ def main() -> int:
     seg_err, seg_walk_err = phase_segment_kernels(dev)
     fwd_err, sample_walk_err = phase_sample_kernels(dev)
     main_run = phase_main(dev)
+    phase_trace(dev, card, main_run)
     long_run = phase_long(dev, main_run["named"])
     run_longpair(dev, card, LONGPAIR_NT)
     run_lonepair(dev, card)

@@ -12,10 +12,11 @@ Forward distribution (`sample`), and the triplet models tri-mg, tri-ecm and
 dna (`alignpair`, `batch`) with their own segmented path; several devices
 (the engine's chunks round-robin over a list of lanes, the mesh entry points
 of `parallel/mesh.py`) and several processes (`batch --multihost` on
-torch.distributed); every device kernel of the JAX package has a hand-written
-CUDA kernel here with a plain PyTorch version beside it. Still to port
-(ROADMAP.md, "Modules to port"): the benchmark (item 6), --trace-dir and the
-tools (item 11).
+torch.distributed); a torch.profiler trace (`batch --trace-dir`); the tools
+(`coati_tpu_torch.tools`: the parity and long-pair evidence, the probes);
+every device kernel of the JAX package has a hand-written CUDA kernel here
+with a plain PyTorch version beside it. Still to port (ROADMAP.md, "Modules
+to port"): the benchmark (item 6).
 """
 
 __version__ = "0.1.0"

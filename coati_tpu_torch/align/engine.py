@@ -22,6 +22,7 @@ import dataclasses
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from coati_tpu_torch.align import longseq
 from coati_tpu_torch.device import download, resolve_devices, upload
@@ -53,9 +54,10 @@ def ops_to_strings(ops_fwd, score, a_strs, b_strs, k):
     backward and was reversed)."""
     from coati_tpu_torch import native
 
-    pairs = native.ops_to_strings_native(ops_fwd, a_strs, b_strs, k)
-    return [AlignResult(s0, s1, float(score[p]))
-            for p, (s0, s1) in enumerate(pairs)]
+    with record_function("ops_to_strings"):
+        pairs = native.ops_to_strings_native(ops_fwd, a_strs, b_strs, k)
+        return [AlignResult(s0, s1, float(score[p]))
+                for p, (s0, s1) in enumerate(pairs)]
 
 
 def ops_to_strings_plain(ops_fwd, score, a_strs, b_strs, k):
@@ -115,13 +117,15 @@ def fused_align_ops(aseq, bseq, lens_a, lens_b, table, gap_consts, *, k,
     segment walk over that one segment (diagonal layout). One code path on
     both devices. The bp stack is released when this returns; the caching
     allocator reuses it in stream order, after the walk."""
-    if k > _fill.MAX_K:
-        return _sweep_align_ops(aseq, bseq, lens_a, lens_b, table, gap_consts,
-                                k=k, max_steps=max_steps)
-    corners, bp = _fill.wavefront_fill(aseq, bseq, lens_a, lens_b, table,
-                                       gap_consts, k=k)
-    return _walk.traceback_walk(bp, corners, lens_a, lens_b, k=k,
-                                max_steps=max_steps)
+    with record_function("fused_align_ops"):
+        if k > _fill.MAX_K:
+            return _sweep_align_ops(aseq, bseq, lens_a, lens_b, table,
+                                    gap_consts, k=k, max_steps=max_steps)
+        corners, bp = _fill.wavefront_fill(aseq, bseq, lens_a, lens_b, table,
+                                           gap_consts, k=k)
+        with record_function("traceback_walk"):
+            return _walk.traceback_walk(bp, corners, lens_a, lens_b, k=k,
+                                        max_steps=max_steps)
 
 
 def _sweep_align_ops(aseq, bseq, lens_a, lens_b, table, gap_consts, *, k,

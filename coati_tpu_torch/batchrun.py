@@ -174,8 +174,8 @@ def cmd_batch(argv) -> int:
     """CLI: coati-tpu-torch batch pairs.fasta [-o out.jsonl] [--manifest m.txt]"""
     import argparse
 
-    from coati_tpu_torch.profiling import ThroughputMeter
     from coati_tpu_torch.params import alignment_params
+    from coati_tpu_torch.profiling import ThroughputMeter, trace
 
     p = argparse.ArgumentParser(
         prog="coati-tpu-torch batch",
@@ -192,9 +192,14 @@ def cmd_batch(argv) -> int:
     p.add_argument("-k", "--gap-len", type=int, default=1)
     p.add_argument("-w", "--omega", type=float, default=0.2)
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
-                   help="device to align on: cuda, every local card "
-                   "(COATI_TPU_MAX_DEVICES caps them), or cpu (default: cuda)")
-    p.add_argument("--trace-dir", default="", help="not yet ported")
+                   help="device to align on: cuda, every local card (under "
+                   "--multihost this process's own: multihost.local_devices; "
+                   "COATI_TPU_MAX_DEVICES caps them), or cpu (default: cuda)")
+    p.add_argument("--trace-dir", default="",
+                   help="Capture a torch.profiler trace of the run (host "
+                   "functions and, on a card, its kernels and copies) into "
+                   "this directory, one file a process (TensorBoard, "
+                   "Perfetto)")
     p.add_argument("--multihost", action="store_true",
                    help="Multi-process mode: join a torch.distributed (gloo) "
                    "group, align only this process's shard of the pair "
@@ -209,10 +214,6 @@ def cmd_batch(argv) -> int:
     p.add_argument("--pid", type=int, default=None,
                    help="torch.distributed process index")
     args = p.parse_args(argv)
-    if args.trace_dir:
-        raise NotImplementedError(
-            "--trace-dir is not yet ported to coati_tpu_torch "
-            "(ROADMAP.md, Modules to port, item 11)")
 
     aln = alignment_params(args.model, args.br_len, args.omega, args.gap_open,
                            args.gap_extend, args.gap_len)
@@ -222,15 +223,20 @@ def cmd_batch(argv) -> int:
     n_total = len(pairs)
     shard_lo = 0
     started = False
+    device = args.device
     if args.multihost:
-        # each process aligns a contiguous shard; the merge below collates
+        # each process aligns a contiguous shard on its own cards; the merge
+        # below collates
         from coati_tpu_torch.parallel.multihost import (
             host_shard,
             init_distributed,
+            local_devices,
             rank,
             shard_bounds,
         )
 
+        if device == "cuda":
+            device = local_devices() or device  # no card: resolve_devices raises
         started = init_distributed(args.coordinator, args.nproc, args.pid)
         shard_lo, _ = shard_bounds(n_total)
         pairs = host_shard(pairs)
@@ -243,8 +249,9 @@ def cmd_batch(argv) -> int:
             if args.output else sys.stdout
         meter = ThroughputMeter()
         try:
-            n = batch_align(aln, pairs, out, manifest=args.manifest, meter=meter,
-                            index_offset=shard_lo, device=args.device)
+            with trace(args.trace_dir or None, device):
+                n = batch_align(aln, pairs, out, manifest=args.manifest,
+                                meter=meter, index_offset=shard_lo, device=device)
         finally:
             if args.output:
                 out.close()

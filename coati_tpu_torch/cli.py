@@ -5,8 +5,9 @@ All seven verbs: alignpair (and -s scoring), msa, sample, format, genseed,
 version, batch. alignpair and batch take all five models (mar-mg, mar-ecm,
 tri-mg, tri-ecm, dna); msa and sample the marginal ones, as in the JAX
 package. Those that align take --device {cuda,cpu}, default cuda; asking for
-cuda where there is none is an error, not a silent move to the CPU. Not
-ported: --multihost, --trace-dir.
+cuda where there is none is an error, not a silent move to the CPU. batch
+also takes --multihost (torch.distributed) and --trace-dir (a torch.profiler
+trace).
 
 --platform X (or --platform=X), anywhere on the command line, and the
 COATI_TPU_FORCE_PLATFORM environment variable are taken as coati-tpu takes

@@ -119,11 +119,12 @@ def download(*tensors):
     completes after the last copy, or None on the CPU)."""
     if tensors[0].device.type != "cuda":
         return tensors, None
-    hosts = []
-    for t in tensors:
-        host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-        host.copy_(t, non_blocking=True)
-        hosts.append(host)
-    ev = torch.cuda.Event()
-    ev.record(torch.cuda.current_stream(tensors[0].device))
-    return hosts, ev
+    with torch.profiler.record_function("download"):
+        hosts = []
+        for t in tensors:
+            host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            host.copy_(t, non_blocking=True)
+            hosts.append(host)
+        ev = torch.cuda.Event()
+        ev.record(torch.cuda.current_stream(tensors[0].device))
+        return hosts, ev

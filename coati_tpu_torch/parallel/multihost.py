@@ -52,6 +52,26 @@ def world_size() -> int:
     return dist.get_world_size() if dist.is_initialized() else 1
 
 
+def local_devices() -> list[str]:
+    """The cards this process owns, by name (counterpart of
+    jax.local_devices()): where LOCAL_RANK and LOCAL_WORLD_SIZE are set, as
+    torchrun sets them, every card q with q % LOCAL_WORLD_SIZE == LOCAL_RANK,
+    so that the processes on one node split its cards (with more processes
+    than cards, process r shares card r % cards); otherwise every card.
+    Either way capped by COATI_TPU_MAX_DEVICES, as device.resolve_devices
+    caps "cuda". No card: an empty list."""
+    n = torch.cuda.device_count()
+    cards = list(range(n))
+    if n and "LOCAL_RANK" in os.environ and "LOCAL_WORLD_SIZE" in os.environ:
+        local_rank = int(os.environ["LOCAL_RANK"])
+        local_size = int(os.environ["LOCAL_WORLD_SIZE"])
+        cards = [q for q in cards if q % local_size == local_rank] or [local_rank % n]
+    cap = int(os.environ.get("COATI_TPU_MAX_DEVICES", "0"))
+    if cap > 0:
+        cards = cards[:cap]
+    return [f"cuda:{q}" for q in cards]
+
+
 def shard_bounds(n: int, process_index: int | None = None,
                  process_count: int | None = None) -> tuple[int, int]:
     """[lo, hi) global-index bounds of this process's contiguous shard."""

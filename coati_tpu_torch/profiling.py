@@ -1,13 +1,123 @@
-"""Throughput accounting (counterpart of coati_tpu/profiling.py).
+"""Profiling and throughput accounting (counterpart of coati_tpu/profiling.py).
 
-A running cells/sec and alignments/sec meter used by the batch verb. Device
-tracing is not ported yet.
+trace() captures a torch.profiler trace of the host (every Python function,
+as a JAX trace shows the host) and, on a card, of the device's kernels and
+copies, viewable in TensorBoard or Perfetto; the readers below sum it by
+kernel and by host function. ThroughputMeter is a running cells/sec and
+alignments/sec meter used by the batch verb.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
+import json
 import time
+from pathlib import Path
+
+import torch
+
+
+def on_card(device) -> bool:
+    """Whether `device` (a name or a torch.device, or a list of them) names
+    a card."""
+    items = device if isinstance(device, (list, tuple)) else [device]
+    return any(torch.device(d).type == "cuda" for d in items)
+
+
+@contextlib.contextmanager
+def trace(log_dir: str | None, device="cuda"):
+    """Capture a torch.profiler trace into `log_dir` if a directory is
+    given; no-op otherwise.
+
+    CPU activity always, with Python function events (with_stack), and CUDA
+    activity when `device` names a card. The trace goes through
+    tensorboard_trace_handler, one file a process
+    ({host}_{pid}.{stamp}.pt.trace.json), as jax.profiler writes one a host.
+    On a card the trace must hold the card's activity: a profiler that
+    recorded none (no CUPTI) raises RuntimeError once the block is done."""
+    if not log_dir:
+        yield
+        return
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
+
+    card = on_card(device)
+    if card and not torch.cuda.is_available():
+        raise RuntimeError("a trace of the card asked for, but CUDA is not available")
+    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if card else [])
+    write = tensorboard_trace_handler(str(log_dir))
+    device_events = []
+
+    def ready(prof):
+        write(prof)
+        device_events.append(sum(
+            e.device_type() == DeviceType.CUDA
+            for e in prof.profiler.kineto_results.events()))
+
+    with profile(activities=activities, with_stack=True, on_trace_ready=ready):
+        yield
+        if card:
+            torch.cuda.synchronize()
+    if card and not (device_events and device_events[0]):
+        raise RuntimeError(
+            f"the trace in {log_dir} recorded no activity of the card: the "
+            "profiler could not trace it (CUPTI)")
+
+
+def trace_files(log_dir) -> list[Path]:
+    """The trace files in `log_dir`, oldest first."""
+    return sorted(Path(log_dir).glob("*.pt.trace.json"), key=lambda p: p.stat().st_mtime)
+
+
+def load_trace(path) -> list[dict]:
+    """The events of one trace file."""
+    with open(path) as f:
+        return json.load(f)["traceEvents"]
+
+
+def kernel_totals(events) -> dict[str, tuple[int, float]]:
+    """{kernel name: (launches, summed microseconds)} over the events of
+    category "kernel" (the card's kernels)."""
+    out: dict[str, list] = collections.defaultdict(lambda: [0, 0.0])
+    for e in events:
+        if e.get("cat") == "kernel":
+            out[e["name"]][0] += 1
+            out[e["name"]][1] += float(e.get("dur", 0.0))
+    return {name: (n, us) for name, (n, us) in out.items()}
+
+
+def host_self_times(events) -> list[tuple[str, float, int]]:
+    """[(Python function, self microseconds, calls)], largest first: each
+    python_function event's duration less its direct children's (linked by
+    the trace's "Python id" and "Python parent id"), summed by name, so
+    time spent in native code (numpy, aten, a launch) counts to the
+    function that called it."""
+    funcs = [e for e in events if e.get("cat") == "python_function"]
+    child_us: dict[int, float] = collections.defaultdict(float)
+    for e in funcs:
+        parent = e.get("args", {}).get("Python parent id")
+        if parent is not None:
+            child_us[parent] += float(e.get("dur", 0.0))
+    self_us: dict[str, float] = collections.defaultdict(float)
+    calls: dict[str, int] = collections.defaultdict(int)
+    for e in funcs:
+        pid = e.get("args", {}).get("Python id")
+        self_us[e["name"]] += float(e.get("dur", 0.0)) - child_us.get(pid, 0.0)
+        calls[e["name"]] += 1
+    return sorted(((n, us, calls[n]) for n, us in self_us.items()),
+                  key=lambda x: -x[1])
+
+
+def range_totals(events) -> dict[str, tuple[int, float]]:
+    """{record_function name: (calls, summed microseconds)} over the host's
+    user_annotation events."""
+    out: dict[str, list] = collections.defaultdict(lambda: [0, 0.0])
+    for e in events:
+        if e.get("cat") == "user_annotation":
+            out[e["name"]][0] += 1
+            out[e["name"]][1] += float(e.get("dur", 0.0))
+    return {name: (n, us) for name, (n, us) in out.items()}
 
 
 class ThroughputMeter:

@@ -364,15 +364,16 @@ def triplet_align_batch(model, pairs, traceback: str = "device",
     if not model.codon:
         return [triplet_align(model, a, d) for a, d in pairs]
 
-    if enc is None:
-        enc = [encode_triplet_pair(model, a, d) for a, d in pairs]
-    out = [None] * len(pairs)
-    for idxs, long in _sub_batches(enc):
-        if long:
-            res = [triplet_align_long(model, *pairs[idxs[0]], device=dev)]
-        else:
-            res = _align_group(model, [pairs[i] for i in idxs],
-                               [enc[i] for i in idxs], traceback, dev)
-        for i, r in zip(idxs, res):
-            out[i] = r
-    return out
+    with torch.profiler.record_function("triplet_align_batch"):
+        if enc is None:
+            enc = [encode_triplet_pair(model, a, d) for a, d in pairs]
+        out = [None] * len(pairs)
+        for idxs, long in _sub_batches(enc):
+            if long:
+                res = [triplet_align_long(model, *pairs[idxs[0]], device=dev)]
+            else:
+                res = _align_group(model, [pairs[i] for i in idxs],
+                                   [enc[i] for i in idxs], traceback, dev)
+            for i, r in zip(idxs, res):
+                out[i] = r
+        return out

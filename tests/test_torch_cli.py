@@ -75,11 +75,12 @@ def test_batch_matches_jax_cli(tmp_path):
 
 
 def test_not_ported_verbs_and_models_exit_1(tmp_path, capsys):
-    """Every verb and every model is ported now; what is left says so and
-    exits 1: --trace-dir. batch --multihost without a coordinator is one
-    process and writes what batch writes. msa and sample take marginal
-    models only, as in the JAX package; alignpair takes the triplet
-    models."""
+    """Every verb, every model and every option is ported now: nothing is
+    left to say "not yet ported". What exits 1 is what the JAX package
+    refuses too: msa and sample take marginal models only; alignpair takes
+    the triplet models. batch --multihost without a coordinator is one
+    process and writes what batch writes; batch --trace-dir exits 0, writes
+    one trace and the bytes batch writes."""
     src = tmp_path / "pair.fasta"
     src.write_text(PAIR)
     assert sorted(torch_cli.VERBS) == sorted(jax_cli.VERBS)
@@ -105,9 +106,12 @@ def test_not_ported_verbs_and_models_exit_1(tmp_path, capsys):
     assert (tmp_path / "multi.jsonl.0").read_bytes() == outs[0]
     assert json.loads((tmp_path / "multi.jsonl.scores.json").read_text())["n_pairs"] == 4
     capsys.readouterr()
-    assert torch_cli.main(["batch", str(src), "--trace-dir", str(tmp_path / "tr"),
-                           "--device", "cpu"]) == 1
-    assert "not yet ported" in capsys.readouterr().err
+    traced = tmp_path / "traced.jsonl"
+    assert torch_cli.main(["batch", str(pairs), "--trace-dir", str(tmp_path / "tr"),
+                           "--device", "cpu", "-o", str(traced)]) == 0
+    assert "not yet ported" not in capsys.readouterr().err
+    assert traced.read_bytes() == outs[0]
+    assert len(list((tmp_path / "tr").glob("*.pt.trace.json"))) == 1
 
 
 def _msa_inputs(tmp_path):
