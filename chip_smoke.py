@@ -154,6 +154,17 @@ Phases, each printing lines (any failure raises, exit code non-zero):
              to its rows with null at the rejected pairs. Prints its
              seconds.
 
+11. bench  - python -m coati_tpu_torch.bench with BENCH_QUICK=1 in a
+             subprocess on the card (a HOME of its own for the anchor's
+             cache). Fails if it exits non-zero, if its last line does not
+             parse, lacks a key of bench.KEYS or passes bench.LINE_BYTES, if
+             its "device" is not the card's label (nvidia-smi's name and
+             power limit), if vs_baseline is null, or if its stderr's kernel
+             counts show a kernel of the bench's path never launched: the
+             fill and walk, the Forward and sample walk, the triplet rows
+             and walk, the segment kernel and segment walk. Prints the line
+             and the bench's stderr but its unrounded record.
+
 Every line carries the seconds since the start. The line before last is a
 JSON object with one entry per kernel; the last line is
 {"ok": true, "device": {...}}.
@@ -180,7 +191,14 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from coati_tpu_torch import batchrun, cli, driver, triplet_hmm, utils  # noqa: E402
+from coati_tpu_torch import bench as bench_mod  # noqa: E402
 from coati_tpu_torch import profiling  # noqa: E402
+from coati_tpu_torch.profiling import (  # noqa: E402
+    KernelTimer,
+    launch_counts,
+    reset_launch_counts,
+)
+from coati_tpu_torch.profiling import swapped as wrappers  # noqa: E402
 from coati_tpu_torch import device as device_mod  # noqa: E402
 from coati_tpu_torch import triplet_wavefront as tw  # noqa: E402
 from coati_tpu_torch.align import engine, longseq, sample_device  # noqa: E402
@@ -426,20 +444,6 @@ def long_golden_pairs(seed):
     return make_pairs(3, np.random.default_rng(seed), length_mix=[(2997, 1.0)])
 
 
-# the wrappers the engine and the long-pair path call, by name
-WRAPPERS = {
-    "wavefront_fill": (fill_mod, "wavefront_fill"),
-    "traceback_walk": (walk_mod, "traceback_walk"),
-    "wavefront_segment": (seg_mod, "wavefront_segment"),
-    "wavefront_score": (score_mod, "wavefront_score"),
-    "traceback_walk_segment": (walk_mod, "walk_segment"),
-    "wavefront_forward": (fwd_mod, "wavefront_forward"),
-    "sample_walk": (sample_mod, "sample_walk"),
-    "triplet_rows": (trows_mod, "triplet_rows"),
-    "triplet_walk": (twalk_mod, "triplet_walk"),
-}
-
-
 def _triplet_rows_plain(anc_cods, des_codes, ins_off, steps, lens_m, *rest,
                         keep_grid=True, grid_out=None, amax_out=None):
     grid, amax, out = trows_mod.triplet_rows_plain(
@@ -463,38 +467,6 @@ PLAIN = {
     "triplet_rows": _triplet_rows_plain,
     "triplet_walk": twalk_mod.triplet_walk_plain,
 }
-
-
-@contextlib.contextmanager
-def wrappers(standins):
-    """Stand functions in for the kernel wrappers of those names."""
-    orig = {name: getattr(*WRAPPERS[name]) for name in standins}
-    for name, fn in standins.items():
-        setattr(*WRAPPERS[name], fn)
-    try:
-        yield
-    finally:
-        for name, fn in orig.items():
-            setattr(*WRAPPERS[name], fn)
-
-
-def launch_counts():
-    return {"wavefront_fill": fill_mod.LAUNCHES,
-            "traceback_walk": walk_mod.LAUNCHES,
-            "wavefront_segment": seg_mod.LAUNCHES,
-            "wavefront_score": score_mod.LAUNCHES,
-            "traceback_walk_segment": walk_mod.SEGMENT_LAUNCHES,
-            "wavefront_forward": fwd_mod.LAUNCHES,
-            "sample_walk": sample_mod.LAUNCHES,
-            "triplet_rows": trows_mod.LAUNCHES,
-            "triplet_walk": twalk_mod.LAUNCHES}
-
-
-def reset_launch_counts():
-    fill_mod.LAUNCHES = walk_mod.LAUNCHES = seg_mod.LAUNCHES = 0
-    score_mod.LAUNCHES = walk_mod.SEGMENT_LAUNCHES = 0
-    fwd_mod.LAUNCHES = sample_mod.LAUNCHES = 0
-    trows_mod.LAUNCHES = twalk_mod.LAUNCHES = 0
 
 
 T_START = time.perf_counter()
@@ -1159,53 +1131,6 @@ def phase_kernels(dev):
 
 
 # --- phase 4 ----------------------------------------------------------------
-class KernelTimer:
-    """Records CUDA events around every kernel wrapper call of one run. The
-    segment kernel's calls are kept apart by pass: "segment_pass1" without
-    backpointers, "segment_bp" with."""
-
-    def __init__(self, dev):
-        self.dev = dev
-        self.events = {}
-        self.padded_cells = 0  # of the fill
-        self.wall = 0.0  # seconds of the traced run, set by the caller
-        self._swap = None
-
-    def _wrap(self, name, fn):
-        def timed(*args, **kw):
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            out = fn(*args, **kw)
-            end.record()
-            key = name
-            if name == "wavefront_segment":
-                key = "segment_bp" if kw["want_bp"] else "segment_pass1"
-            self.events.setdefault(key, []).append((start, end))
-            if name == "wavefront_fill":
-                (B, NA), NB = args[0].shape, args[1].shape[1]
-                k = kw["k"]
-                self.padded_cells += B * (NA + k) * (NB + k)
-            return out
-        return timed
-
-    def __enter__(self):
-        self._swap = wrappers({name: self._wrap(name, getattr(*WRAPPERS[name]))
-                               for name in WRAPPERS})
-        self._swap.__enter__()
-        return self
-
-    def __exit__(self, *exc):
-        self._swap.__exit__(*exc)
-        torch.cuda.synchronize(self.dev)
-
-    def count(self, name):
-        return len(self.events.get(name, []))
-
-    def seconds(self, name):
-        return sum(s.elapsed_time(e) for s, e in self.events.get(name, [])) / 1e3
-
-
 def _batch_text(named, device, model="mar-mg"):
     """batch_align's output for `named` on `device` (a device or lanes):
     (pairs aligned, the JSON lines as written)."""
@@ -3103,6 +3028,45 @@ def phase_multi(dev, card, main_run, long_run):
     return run
 
 
+# --- phase 11: the bench ----------------------------------------------------
+# the kernels the bench's sections launch, every one of which must launch
+BENCH_KERNELS = ("wavefront_fill", "traceback_walk", "wavefront_forward", "sample_walk",
+                 "triplet_rows", "triplet_walk", "wavefront_segment",
+                 "traceback_walk_segment")
+
+
+def phase_bench(card):
+    torch.cuda.empty_cache()  # the card's memory to the bench's process
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as home:
+        proc = subprocess.run(
+            [sys.executable, "-m", "coati_tpu_torch.bench"], cwd=ROOT, timeout=600,
+            capture_output=True, text=True,
+            env={**os.environ, "BENCH_QUICK": "1", "HOME": home})
+    secs = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"bench exited {proc.returncode}: {proc.stderr[-3000:]}")
+    last = proc.stdout.strip().splitlines()[-1]
+    line = json.loads(last)
+    launched = dict.fromkeys(BENCH_KERNELS, 0)
+    for ln in proc.stderr.splitlines():
+        if ln.startswith("# kernels "):
+            for name, n in json.loads(ln.split(": ", 1)[1]).items():
+                launched[name] = launched.get(name, 0) + n
+        if not ln.startswith("# record "):
+            say("bench", ln)
+    say("bench", f"line ({len(last.encode())} bytes): {last}")
+    if len(last.encode()) > bench_mod.LINE_BYTES or tuple(line) != bench_mod.KEYS:
+        raise AssertionError(f"bench line of {len(last.encode())} bytes, keys {list(line)}")
+    if line["device"] != card or line["vs_baseline"] is None:
+        raise AssertionError(f"bench device {line['device']!r} (the card: {card!r}), "
+                             f"vs_baseline {line['vs_baseline']}")
+    if min(launched[name] for name in BENCH_KERNELS) == 0:
+        raise AssertionError(f"a kernel of the bench's path never launched: {launched}")
+    say("bench", f"python -m coati_tpu_torch.bench (BENCH_QUICK=1) in {secs:.1f} s; "
+        f"launches {launched}")
+
+
 def main() -> int:
     dev, card = phase_device()
     phase_build()
@@ -3118,6 +3082,7 @@ def main() -> int:
     phase_msa(dev, card)
     triplet_run = phase_triplet(dev, card)
     phase_multi(dev, card, main_run, long_run)
+    phase_bench(card)
     phase_numbers(card, main_shape, main_run, long_run, score_cell(dev), sample_run,
                   triplet_run, {"fill": fill_err, "walk": walk_err, "segment": seg_err,
                    "segment_walk": seg_walk_err, "forward": fwd_err,

@@ -14,9 +14,10 @@ dna (`alignpair`, `batch`) with their own segmented path; several devices
 of `parallel/mesh.py`) and several processes (`batch --multihost` on
 torch.distributed); a torch.profiler trace (`batch --trace-dir`); the tools
 (`coati_tpu_torch.tools`: the parity and long-pair evidence, the probes);
-every device kernel of the JAX package has a hand-written CUDA kernel here
-with a plain PyTorch version beside it. Still to port (ROADMAP.md, "Modules
-to port"): the benchmark (item 6).
+the bench (`python -m coati_tpu_torch.bench`, bench.py's sections on the
+card); every device kernel of the JAX package has a hand-written CUDA kernel
+here with a plain PyTorch version beside it. Still to do (ROADMAP.md,
+"Modules to port"): the benchmark's cells (item 6).
 """
 
 __version__ = "0.1.0"

@@ -4,7 +4,9 @@ trace() captures a torch.profiler trace of the host (every Python function,
 as a JAX trace shows the host) and, on a card, of the device's kernels and
 copies, viewable in TensorBoard or Perfetto; the readers below sum it by
 kernel and by host function. ThroughputMeter is a running cells/sec and
-alignments/sec meter used by the batch verb.
+alignments/sec meter used by the batch verb. KernelTimer is the one reader
+of device time over a run, through the table of kernel wrappers (WRAPPERS)
+and their launch counters: chip_smoke.py and the bench both time with it.
 """
 
 from __future__ import annotations
@@ -16,6 +18,17 @@ import time
 from pathlib import Path
 
 import torch
+
+from coati_tpu_torch.kernels import (
+    sample_walk,
+    traceback_walk,
+    triplet_rows,
+    triplet_walk,
+    wavefront_fill,
+    wavefront_forward,
+    wavefront_score,
+    wavefront_segment,
+)
 
 
 def on_card(device) -> bool:
@@ -154,3 +167,118 @@ class ThroughputMeter:
             "cells_per_sec": round(self.cells_per_sec, 0),
             "pairs_per_sec": round(self.pairs_per_sec, 2),
         }
+
+
+# the kernel wrappers the engine, the long-pair path, sampling and the
+# triplet path call, by name: (module, attribute), and the module attribute
+# that counts each one's kernel launches
+WRAPPERS = {
+    "wavefront_fill": (wavefront_fill, "wavefront_fill"),
+    "traceback_walk": (traceback_walk, "traceback_walk"),
+    "wavefront_segment": (wavefront_segment, "wavefront_segment"),
+    "wavefront_score": (wavefront_score, "wavefront_score"),
+    "traceback_walk_segment": (traceback_walk, "walk_segment"),
+    "wavefront_forward": (wavefront_forward, "wavefront_forward"),
+    "sample_walk": (sample_walk, "sample_walk"),
+    "triplet_rows": (triplet_rows, "triplet_rows"),
+    "triplet_walk": (triplet_walk, "triplet_walk"),
+}
+COUNTERS = {name: (mod, "SEGMENT_LAUNCHES" if name == "traceback_walk_segment"
+                   else "LAUNCHES") for name, (mod, _) in WRAPPERS.items()}
+
+
+def launch_counts() -> dict[str, int]:
+    """{wrapper name: kernel launches counted since the last reset}."""
+    return {name: getattr(mod, attr) for name, (mod, attr) in COUNTERS.items()}
+
+
+def reset_launch_counts() -> None:
+    for mod, attr in COUNTERS.values():
+        setattr(mod, attr, 0)
+
+
+@contextlib.contextmanager
+def swapped(standins):
+    """Stand functions in for the kernel wrappers of those names."""
+    orig = {name: getattr(*WRAPPERS[name]) for name in standins}
+    for name, fn in standins.items():
+        setattr(*WRAPPERS[name], fn)
+    try:
+        yield
+    finally:
+        for name, fn in orig.items():
+            setattr(*WRAPPERS[name], fn)
+
+
+class KernelTimer:
+    """Times every kernel wrapper call of one run: CUDA events on the stream
+    the wrapper launches on (a lane's own stream inside Lane.context()), or,
+    on the CPU, where the wrappers run their plain versions, the host clock.
+    Calls are kept by wrapper name; the segment kernel's apart by pass,
+    "segment_pass1" without backpointers and "segment_bp" with. Each call is
+    also counted to its chunk: the shape (NA, NB, B) of the last fill
+    launched before it, so the walk goes with its fill."""
+
+    def __init__(self, dev):
+        self.dev = torch.device(dev)
+        self.events = {}  # name: [(start, end)], CUDA events or host seconds
+        self.chunks = {}  # (NA, NB, B): [fills, [(start, end)]]
+        self.padded_cells = 0  # of the fill
+        self.wall = 0.0  # seconds of the timed run, set by the caller
+        self._chunk = None
+        self._swap = None
+
+    def _stamp(self):
+        if self.dev.type != "cuda":
+            return time.perf_counter()
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        return ev
+
+    def _wrap(self, name, fn):
+        def timed(*args, **kw):
+            start = self._stamp()
+            out = fn(*args, **kw)
+            span = (start, self._stamp())
+            key = name
+            if name == "wavefront_segment":
+                key = "segment_bp" if kw["want_bp"] else "segment_pass1"
+            self.events.setdefault(key, []).append(span)
+            if name == "wavefront_fill":
+                (B, NA), NB = args[0].shape, args[1].shape[1]
+                self.padded_cells += B * (NA + kw["k"]) * (NB + kw["k"])
+                self._chunk = (NA, NB, B)
+                self.chunks.setdefault(self._chunk, [0, []])[0] += 1
+            if self._chunk is not None:
+                self.chunks[self._chunk][1].append(span)
+            return out
+        return timed
+
+    def __enter__(self):
+        self._swap = swapped({name: self._wrap(name, getattr(*WRAPPERS[name]))
+                              for name in WRAPPERS})
+        self._swap.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self._swap.__exit__(*exc)
+        if self.dev.type == "cuda":
+            torch.cuda.synchronize(self.dev)
+
+    @staticmethod
+    def _seconds(spans):
+        return sum(e - s if isinstance(s, float) else s.elapsed_time(e) / 1e3
+                   for s, e in spans)
+
+    def count(self, name):
+        return len(self.events.get(name, []))
+
+    def seconds(self, name=None):
+        """Summed seconds of the calls of `name`, or of every call."""
+        names = self.events if name is None else [name]
+        return sum(self._seconds(self.events.get(n, [])) for n in names)
+
+    def chunk_seconds(self) -> dict:
+        """{(NA, NB, B): (chunks, summed seconds of their calls)}."""
+        return {shape: (n, self._seconds(spans))
+                for shape, (n, spans) in self.chunks.items()}
