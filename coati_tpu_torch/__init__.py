@@ -16,8 +16,7 @@ torch.distributed); a torch.profiler trace (`batch --trace-dir`); the tools
 (`coati_tpu_torch.tools`: the parity and long-pair evidence, the probes);
 the bench (`python -m coati_tpu_torch.bench`, bench.py's sections on the
 card); every device kernel of the JAX package has a hand-written CUDA kernel
-here with a plain PyTorch version beside it. Still to do (ROADMAP.md,
-"Modules to port"): the benchmark's cells (item 6).
+here with a plain PyTorch version beside it.
 """
 
 __version__ = "0.1.0"

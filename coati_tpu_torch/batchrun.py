@@ -49,6 +49,105 @@ def _validate_triplet_pair(anc: str) -> None:
         )
 
 
+# every three-letter string that utils.trim_end_stops takes for a stop codon
+_STOP_ENDS = frozenset(
+    x + y + z for x in "ACGTUacgtu" for y in "ACGTUacgtu" for z in "ACGTUacgtu"
+    if (int(C.NT16_TABLE[ord(x)]) << 4 | int(C.NT16_TABLE[ord(y)]) << 2
+        | int(C.NT16_TABLE[ord(z)])) in C.STOP_CODONS_64)
+_IS_STOP64 = np.zeros(64, dtype=bool)
+_IS_STOP64[list(C.STOP_CODONS_64)] = True
+# NT16_TABLE for bytes.translate; a codon's three ancestor codes, codon*3+phase
+_NT16_BYTES = C.NT16_TABLE.tobytes()
+_CODON_CODES = (C.COD64_TO_61[:, None] * 3 + np.arange(3)).astype(np.int32)
+
+
+def _trim(seq: str) -> tuple[str, str]:
+    """(seq less a terminal stop codon, that codon or ""), as
+    utils.trim_end_stops trims one sequence."""
+    end = seq[-3:]
+    return (seq[:-3], end) if end in _STOP_ENDS else (seq, "")
+
+
+def _pairs_at(offsets: np.ndarray, positions: np.ndarray) -> set:
+    """The pairs whose slices of a joined buffer (starts `offsets`) hold
+    `positions`."""
+    return set((np.searchsorted(offsets, positions, side="right") - 1).tolist())
+
+
+def encode_marginal_chunk(seqs):
+    """Encode a chunk of (ancestor, descendant) pairs for the marginal engine
+    in one pass: utils.trim_end_stops and utils.encode_marginal on every
+    pair, as one NT16_TABLE lookup over the joined ancestors and one over
+    the joined descendants, codons from the three phases, stops through a
+    table of 64.
+
+    Returns, a pair, (enc_a, enc_b, trimmed ancestor, trimmed descendant,
+    [stop of the ancestor, stop of the descendant]), the code arrays views of
+    one buffer; or None for a pair on which encode_marginal raises (length
+    not a multiple of 3, an ancestor code above 3, an early stop, a
+    descendant code above 15, a string that is not ASCII), left out of the
+    buffers so that the codon frame holds."""
+    ancs, dess, stops = [], [], []
+    for a, d in seqs:
+        a, sa = _trim(a)
+        d, sd = _trim(d)
+        ancs.append(a)
+        dess.append(d)
+        stops.append([sa, sd])
+    bad = {p for p, (a, d) in enumerate(zip(ancs, dess))
+           if len(a) % 3 or not (a.isascii() and d.isascii())}
+    parts_a = [("" if p in bad else a) for p, a in enumerate(ancs)]
+    parts_b = [("" if p in bad else d) for p, d in enumerate(dess)]
+    off_a = np.cumsum([0] + [len(a) for a in parts_a])
+    off_b = np.cumsum([0] + [len(d) for d in parts_b])
+
+    a_codes = np.frombuffer("".join(parts_a).encode("ascii").translate(_NT16_BYTES),
+                            np.uint8)
+    bad |= _pairs_at(off_a, np.flatnonzero(a_codes > 3))
+    a2 = a_codes & 3  # an ambiguous pair's codons stay in range; it is out
+    cods64 = (a2[0::3] << 4) | (a2[1::3] << 2) | a2[2::3]
+    bad |= _pairs_at(off_a, 3 * np.flatnonzero(_IS_STOP64[cods64]))
+    enc_a = np.take(_CODON_CODES, cods64, axis=0).reshape(-1)
+
+    b_codes = np.frombuffer("".join(parts_b).encode("ascii").translate(_NT16_BYTES),
+                            np.uint8)
+    bad |= _pairs_at(off_b, np.flatnonzero(b_codes > 15))
+    enc_b = b_codes.astype(np.int32)
+
+    oa, ob = off_a.tolist(), off_b.tolist()
+    return [None if p in bad else
+            (enc_a[oa[p]:oa[p + 1]], enc_b[ob[p]:ob[p + 1]], ancs[p], dess[p], stops[p])
+            for p in range(len(seqs))]
+
+
+def _encode_pair(seq_a: str, seq_b: str, triplet_model):
+    """One pair as batch_align encoded it before encode_marginal_chunk, the
+    route of the triplet models and of the pairs the chunk encoder leaves out
+    (to raise their errors): (enc_a, enc_b, trimmed strings, stops)."""
+    d = SeqData(names=["", ""], seqs=[seq_a, seq_b])
+    if triplet_model is not None:
+        from coati_tpu_torch.triplet_hmm import encode_triplet_pair
+
+        _validate_triplet_pair(d.seqs[0])
+        utils.trim_end_stops(d)
+        ea, eb = encode_triplet_pair(triplet_model, d.seqs[0], d.seqs[1])
+    else:
+        utils.trim_end_stops(d)
+        ea, eb = utils.encode_marginal(d.seqs[0], d.seqs[1])
+    return ea, eb, d.seqs[0], d.seqs[1], d.stops
+
+
+def _restore_stops(s0: str, s1: str, score: float, stops, gap_score):
+    """utils.restore_end_stops on one aligned pair, the gap score given:
+    (s0, s1, score)."""
+    if len(stops[0]) == len(stops[1]):
+        return s0 + stops[0], s1 + stops[1], score
+    score = float(np.float32(score) + np.float32(gap_score))
+    if not stops[0]:
+        return s0 + "---", s1 + stops[1], score
+    return s0 + stops[0], s1 + "---", score
+
+
 def _load_done(manifest: str) -> set:
     done = set()
     if manifest and os.path.exists(manifest):
@@ -89,44 +188,42 @@ def batch_align(
     utils.set_subst(aln)
     triplet_model = None
     if not aln.is_marginal():
-        from coati_tpu_torch.triplet_hmm import (
-            build_triplet_model,
-            encode_triplet_pair,
-        )
+        from coati_tpu_torch.triplet_hmm import build_triplet_model
         from coati_tpu_torch.triplet_wavefront import triplet_align_batch
 
         triplet_model = build_triplet_model(aln)
     done = _load_done(manifest)
     mf = open(manifest, "a") if manifest else None
+    # restore_end_stops's logf(g*e*e), in f32 like the reference
+    gap_score = np.log(np.float32(aln.gap.open) * np.float32(aln.gap.extend)
+                       * np.float32(aln.gap.extend)).astype(np.float32)
 
     todo = [i for i in range(len(pairs)) if i not in done]
     n_aligned = 0
     try:
         for s in range(0, len(todo), chunk):
+            idxs = todo[s : s + chunk]
+            if triplet_model is None:
+                encoded = encode_marginal_chunk(
+                    [(pairs[i][1], pairs[i][3]) for i in idxs])
+            else:
+                encoded = [None] * len(idxs)
             enc_as, enc_bs, astrs, bstrs, stops, keep = [], [], [], [], [], []
-            for i in todo[s : s + chunk]:
-                na, sa, nb, sb = pairs[i]
-                d = SeqData(names=[na, nb], seqs=[sa, sb])
-                try:
-                    if triplet_model is not None:
-                        _validate_triplet_pair(d.seqs[0])
-                        utils.trim_end_stops(d)
-                        ea, eb = encode_triplet_pair(
-                            triplet_model, d.seqs[0], d.seqs[1])
-                    else:
-                        utils.trim_end_stops(d)
-                        ea, eb = utils.encode_marginal(d.seqs[0], d.seqs[1])
-                except ValueError as exc:
-                    out_stream.write(json.dumps(
-                        {"pair": i + index_offset, "error": str(exc)}) + "\n")
-                    if mf:
-                        mf.write(f"{i}\n")
-                    continue
-                enc_as.append(ea)
-                enc_bs.append(eb)
-                astrs.append(d.seqs[0])
-                bstrs.append(d.seqs[1])
-                stops.append(d.stops)
+            for i, e in zip(idxs, encoded):
+                if e is None:
+                    try:
+                        e = _encode_pair(pairs[i][1], pairs[i][3], triplet_model)
+                    except ValueError as exc:
+                        out_stream.write(json.dumps(
+                            {"pair": i + index_offset, "error": str(exc)}) + "\n")
+                        if mf:
+                            mf.write(f"{i}\n")
+                        continue
+                enc_as.append(e[0])
+                enc_bs.append(e[1])
+                astrs.append(e[2])
+                bstrs.append(e[3])
+                stops.append(e[4])
                 keep.append(i)
             if not keep:
                 continue
@@ -150,13 +247,13 @@ def batch_align(
             else:
                 results = run_chunk()
             for i, r, st in zip(keep, results, stops):
-                d = SeqData(names=[pairs[i][0], pairs[i][2]],
-                            seqs=[r.seq0, r.seq1], score=r.score, stops=st)
-                utils.restore_end_stops(d, aln.gap)
+                s0, s1, score = r.seq0, r.seq1, r.score
+                if st[0] or st[1]:
+                    s0, s1, score = _restore_stops(s0, s1, score, st, gap_score)
                 out_stream.write(json.dumps({
                     "pair": i + index_offset,
-                    "alignment": {d.names[0]: d.seqs[0], d.names[1]: d.seqs[1]},
-                    "score": float(np.float32(d.score)),
+                    "alignment": {pairs[i][0]: s0, pairs[i][2]: s1},
+                    "score": float(np.float32(score)),
                 }) + "\n")
                 if mf:
                     mf.write(f"{i}\n")

@@ -5,7 +5,8 @@ The bench's mixed batch (make_pairs, seed 20260817, 10,000 pairs by
 default) goes through the steps of align/engine.py viterbi_align_batch, one
 at a time, timed apart, by chunk:
 
-  encode  - per pair, as batch_align does: end stops trimmed, encode_marginal
+  encode  - as batch_align does: batchrun.encode_marginal_chunk over chunks of
+            2,048 pairs (end stops trimmed, one pass over each chunk)
   prep    - bucketing by padded shape and the numpy padding of each chunk
   launch  - the host's time to upload a chunk and enqueue its kernels and copy
   fill, walk, copy - device milliseconds of the fill kernel, the walk kernel
@@ -30,18 +31,19 @@ import time
 
 import numpy as np
 
+CHUNK = 2048  # batch_align's default chunk
+
 
 def run(device: str = "cuda", n_pairs: int = 10_000, passes: int = 3,
         length_mix=None) -> dict:
     import torch
 
-    from coati_tpu_torch import utils
     from coati_tpu_torch.align import engine, longseq
+    from coati_tpu_torch.batchrun import encode_marginal_chunk
     from coati_tpu_torch.device import download, upload
     from coati_tpu_torch.kernels import traceback_walk as walk_k
     from coati_tpu_torch.kernels import wavefront_fill as fill_k
     from coati_tpu_torch.params import alignment_params, params_from_numpy
-    from coati_tpu_torch.structs import SeqData
     from coati_tpu_torch.tools.common import device_and_label, sync
     from coati_tpu_torch.tools.inputs import LENGTH_MIX, make_pairs
 
@@ -69,15 +71,11 @@ def run(device: str = "cuda", n_pairs: int = 10_000, passes: int = 3,
     for p in range(passes):
         t_all = time.perf_counter()
         t0 = time.perf_counter()
-        enc_as, enc_bs, astrs, bstrs = [], [], [], []
-        for a, b in pairs:
-            d = SeqData(names=["a", "b"], seqs=[a, b])
-            utils.trim_end_stops(d)
-            ea, eb = utils.encode_marginal(d.seqs[0], d.seqs[1])
-            enc_as.append(ea)
-            enc_bs.append(eb)
-            astrs.append(d.seqs[0])
-            bstrs.append(d.seqs[1])
+        encoded = [e for s in range(0, len(pairs), CHUNK)
+                   for e in encode_marginal_chunk(pairs[s:s + CHUNK])]
+        if any(e is None for e in encoded):
+            raise ValueError("the profile takes no pair that fails to encode")
+        enc_as, enc_bs, astrs, bstrs, _ = zip(*encoded)
         t_encode = time.perf_counter() - t0
 
         t0 = time.perf_counter()

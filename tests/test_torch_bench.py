@@ -6,10 +6,14 @@ value checks; that run's headline (first 32 pairs) and triplet batch equal
 the JAX package's results on XLA:CPU (strings byte-equal, scores bit-equal in
 f32); and the line stays under 1,500 bytes at the full configuration.
 
-The run patches one of QUICK's sizes: its 7,998 nt long pair takes ~40 s a
-pass through the plain segmented path on the CPU, so the run takes a 999 nt
-one (bench.SIZES, a module constant). It is the last draw, so every other
-section still gets bench.py's pairs.
+The run patches QUICK's sizes (bench.SIZES, a module constant), because the
+plain versions loop over diagonals and codon steps in Python: 48 headline
+pairs of 156 nt, ladder rungs of 8 x 156 and 2 x 471 nt, samples of 156 and
+471 nt, triplet batches of 8 x 156 and 2 x 312 nt and a 471 nt long pair, in
+place of 400 pairs of 156/471 nt, 64 x 156, 16 x 471, 471, 999, 8 x 471,
+2 x 999 and 7,998 nt (the last alone ~40 s a pass through the plain
+segmented path). The run keeps one CPU thread: under a parallel test run
+each worker's thread pool would otherwise contend for every core.
 """
 
 from __future__ import annotations
@@ -48,7 +52,10 @@ SCHEMA_KEYS = (
     "sample_long_vs_baseline",
     "device_seconds", "device_chunk_breakdown", "ladder", "device",
 )
-RUN_SIZES = dataclasses.replace(bench.SIZES["quick"], long_nt=999)
+RUN_SIZES = dataclasses.replace(
+    bench.SIZES["quick"], pairs=48, mix=[(156, 1.0)], ladder=[(156, 8), (471, 2)],
+    sample=(156, 8), sample_long=(471, 4), triplet=(156, 8), triplet_long=(312, 2),
+    long_nt=471)
 RUN_ENV = {"BENCH_QUICK": "1", "BENCH_MAX_PASSES": "2", "BENCH_PASS_BUDGET_S": "30"}
 
 
@@ -97,11 +104,16 @@ def quick_run(tmp_path_factory):
 
     out, err = io.StringIO(), io.StringIO()
     home = str(tmp_path_factory.mktemp("home"))  # the native anchor's cache
-    with mock.patch.dict(os.environ, {**RUN_ENV, "HOME": home}), \
-            mock.patch.dict(bench.SIZES, quick=RUN_SIZES), \
-            mock.patch.object(bench, "run", spy), \
-            contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
-        rc = bench.main(["--device", "cpu"])
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        with mock.patch.dict(os.environ, {**RUN_ENV, "HOME": home}), \
+                mock.patch.dict(bench.SIZES, quick=RUN_SIZES), \
+                mock.patch.object(bench, "run", spy), \
+                contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            rc = bench.main(["--device", "cpu"])
+    finally:
+        torch.set_num_threads(threads)
     return rc, out.getvalue(), err.getvalue(), got["run"]
 
 
@@ -148,7 +160,8 @@ def test_quick_run_equals_the_jax_package(quick_run):
     """The run's headline results (first 32 pairs) and triplet batch equal
     coati_tpu's on XLA:CPU, each package with its own parameters."""
     summary, results = quick_run[3]
-    inputs = bench.section_pairs(bench.config(RUN_ENV))
+    with mock.patch.dict(bench.SIZES, quick=RUN_SIZES):
+        inputs = bench.section_pairs(bench.config(RUN_ENV))
     pi = (0.308, 0.185, 0.199, 0.308)
     table = marginal_p(mg94_p(0.0133, 0.2, pi), pi).astype(np.float32)
     pairs = inputs["headline"][:32]
