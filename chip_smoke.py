@@ -55,7 +55,12 @@ Phases, each printing lines (any failure raises, exit code non-zero):
              reference's results (XLA:CPU), a stratified 256-pair subset
              equals the plain version on the card (strings and f32 scores),
              the CLI's alignpair gives CT----ATAGTG on the reference
-             example, both kernels launched.
+             example, both kernels launched. Every timed run's output equals
+             the checked run's byte for byte. Prints the process's CPU time
+             over the timed runs beside their wall, with PyTorch's CPU
+             threads. Then one more warm run under torch.profiler (CPU
+             activity): it fails if aten::pin_memory or aten::_pin_memory
+             ran, and prints the ATen operations the run called.
    trace   - the CLI's batch --trace-dir over the main mix's first
              TRACE_PAIRS pairs, after the same batch without it: the bytes
              equal; one trace file that parses; its kernel events hold the
@@ -165,9 +170,9 @@ Phases, each printing lines (any failure raises, exit code non-zero):
              and walk, the segment kernel and segment walk. Prints the line
              and the bench's stderr but its unrounded record.
 
-Every line carries the seconds since the start. The line before last is a
-JSON object with one entry per kernel; the last line is
-{"ok": true, "device": {...}}.
+Every line carries the seconds since the start; before phase 6's numbers a
+line gives each phase's seconds. The line before last is a JSON object with
+one entry per kernel; the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -294,6 +299,9 @@ CELL_OPS_TRIPLET = 387
 # add, three I of 4
 CELL_OPS_TRIPLET_WALK = 47
 WARM_RUNS = 5  # timed warm runs of the main path; the first is also checked
+# the ATen operations that pin a tensor: a chunk's copies go through its lane's
+# reused pinned buffers, so the main path calls neither
+PIN_OPS = ("aten::pin_memory", "aten::_pin_memory")
 # the trace phase: pairs of the main mix through batch --trace-dir; the trace's
 # fill and walk time against the CUDA events' (relative); host functions shown
 TRACE_PAIRS = 2_000
@@ -1201,9 +1209,10 @@ def phase_main(dev, n_pairs=N_PAIRS):
     reset_launch_counts()
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
-    t0 = time.perf_counter()
-    n, rows = _run_batch(named, dev)
-    warm = [time.perf_counter() - t0]
+    cpu0, t0 = cpu_seconds(), time.perf_counter()
+    n, text = _batch_text(named, dev)
+    warm, cpu = [time.perf_counter() - t0], [cpu_seconds() - cpu0]
+    rows = [json.loads(line) for line in text.splitlines()]
     launches = {name: count for name, count in launch_counts().items()
                 if name in ("wavefront_fill", "traceback_walk")}
     peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
@@ -1221,14 +1230,30 @@ def phase_main(dev, n_pairs=N_PAIRS):
     n_sub = _subset_matches_plain(named, rows, dev)
     example = _cli_reference_example(dev)
     for _ in range(WARM_RUNS - 1):
-        t0 = time.perf_counter()
-        _run_batch(named, dev)
+        cpu0, t0 = cpu_seconds(), time.perf_counter()
+        again = _batch_text(named, dev)[1]
         warm.append(time.perf_counter() - t0)
+        cpu.append(cpu_seconds() - cpu0)
+        if again != text:
+            bad = sum(x != y for x, y in zip(again.splitlines(), text.splitlines()))
+            raise AssertionError(f"warm run {len(warm)}: {bad} rows differ from the "
+                                 f"checked run's")
     say("main", f"batch_align {n} pairs: cold {cold:.2f} s, warm "
         f"{', '.join(f'{w:.3f}' for w in warm)} s; "
         f"launches {launches}; all ungap to their inputs; {len(golden)} golden "
         f"pairs equal the JAX reference; {n_sub}-pair stratified "
-        f"subset equals the plain version; alignpair example -> {example[-1]}")
+        f"subset equals the plain version; alignpair example -> {example[-1]}; "
+        f"every warm run's output byte-equal to the checked run's")
+    say("main", f"host over the {len(warm)} timed warm runs: CPU {sum(cpu):.3f} s of "
+        f"this process over {sum(warm):.3f} s of wall ({sum(cpu) / sum(warm):.1%}), "
+        f"torch.get_num_threads() {torch.get_num_threads()}")
+    ops = aten_counts(lambda: _run_batch(named, dev))
+    pinned = {name: ops.get(name, 0) for name in PIN_OPS}
+    if any(pinned.values()):
+        raise AssertionError(f"a warm run of the main path pinned tensors: {pinned}")
+    say("main", f"one warm run under torch.profiler: {pinned}; ATen operations "
+        f"by calls: " + ", ".join(f"{name} {c}" for name, c in
+                                  sorted(ops.items(), key=lambda x: -x[1])[:16]))
 
     true_cells = sum(len(a) * len(b) for _, a, _, b in named)
     timer = None
@@ -1240,6 +1265,20 @@ def phase_main(dev, n_pairs=N_PAIRS):
     return {"warm_s": warm, "cold_s": cold, "launches": launches, "peak": peak,
             "true_cells": true_cells, "timer": timer, "n": n, "named": named,
             "rows": rows}
+
+
+def cpu_seconds() -> float:
+    """This process's CPU seconds, user and system, over all its threads."""
+    t = os.times()
+    return t.user + t.system
+
+
+def aten_counts(run) -> dict:
+    """{ATen operation: calls} of run() under torch.profiler, CPU activity."""
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        run()
+    return {e.key: e.count for e in prof.key_averages() if e.key.startswith("aten::")}
 
 
 # --- trace ------------------------------------------------------------------
@@ -3068,22 +3107,33 @@ def phase_bench(card):
 
 
 def main() -> int:
-    dev, card = phase_device()
-    phase_build()
-    main_shape, fill_err, walk_err = phase_kernels(dev)
-    seg_err, seg_walk_err = phase_segment_kernels(dev)
-    fwd_err, sample_walk_err = phase_sample_kernels(dev)
-    main_run = phase_main(dev)
-    phase_trace(dev, card, main_run)
-    long_run = phase_long(dev, main_run["named"])
-    run_longpair(dev, card, LONGPAIR_NT)
-    run_lonepair(dev, card)
-    sample_run = phase_sample(dev, card)
-    phase_msa(dev, card)
-    triplet_run = phase_triplet(dev, card)
-    phase_multi(dev, card, main_run, long_run)
-    phase_bench(card)
-    phase_numbers(card, main_shape, main_run, long_run, score_cell(dev), sample_run,
+    secs = {}
+
+    def phase(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        secs[name] = time.perf_counter() - t0
+        return out
+
+    dev, card = phase("device", phase_device)
+    phase("build", phase_build)
+    main_shape, fill_err, walk_err = phase("kernels", phase_kernels, dev)
+    seg_err, seg_walk_err = phase("segment kernels", phase_segment_kernels, dev)
+    fwd_err, sample_walk_err = phase("sample kernels", phase_sample_kernels, dev)
+    main_run = phase("main", phase_main, dev)
+    phase("trace", phase_trace, dev, card, main_run)
+    long_run = phase("long", phase_long, dev, main_run["named"])
+    phase("longpair", run_longpair, dev, card, LONGPAIR_NT)
+    phase("lonepair", run_lonepair, dev, card)
+    sample_run = phase("sample", phase_sample, dev, card)
+    phase("msa", phase_msa, dev, card)
+    triplet_run = phase("triplet", phase_triplet, dev, card)
+    phase("multi", phase_multi, dev, card, main_run, long_run)
+    phase("bench", phase_bench, card)
+    score = phase("score cell", score_cell, dev)
+    say("phases", ", ".join(f"{name} {s:.1f} s" for name, s in secs.items())
+        + f"; {time.perf_counter() - T_START:.1f} s in all")
+    phase_numbers(card, main_shape, main_run, long_run, score, sample_run,
                   triplet_run, {"fill": fill_err, "walk": walk_err, "segment": seg_err,
                    "segment_walk": seg_walk_err, "forward": fwd_err,
                    "sample_walk": sample_walk_err})

@@ -12,7 +12,9 @@ group is enqueued before the first result is read, so the device works
 while the host pads the next chunk and builds strings. Given several lanes
 (device.resolve_devices), the chunks go round-robin over them, each enqueued
 on its lane's stream, and the long pairs to the first. Score-only Viterbi
-keeps no backpointers and plans its launches by bytes (score_chunks).
+keeps no backpointers and plans its launches by bytes (score_chunks). A
+chunk is padded straight into its lane's pinned buffers and its results come
+back into them (device.Staging), so no CPU tensor operation runs on the way.
 """
 
 from __future__ import annotations
@@ -25,7 +27,7 @@ import torch
 from torch.profiler import record_function
 
 from coati_tpu_torch.align import longseq
-from coati_tpu_torch.device import download, resolve_devices, upload
+from coati_tpu_torch.device import fill_rows, host_arrays, resolve_devices
 from coati_tpu_torch.kernels import traceback_walk as _walk
 from coati_tpu_torch.kernels import wavefront_fill as _fill
 from coati_tpu_torch.kernels import wavefront_score as _score
@@ -85,25 +87,26 @@ def ops_to_strings_plain(ops_fwd, score, a_strs, b_strs, k):
     return results
 
 
-def _pad_rows(seqs, N, dtype=np.int32):
-    """Stack ragged int sequences into a zero-padded [B, N] array."""
-    B = len(seqs)
-    lens = np.fromiter((len(s) for s in seqs), np.int32, count=B)
-    out = np.zeros((B, N), dtype=dtype)
-    if B:
-        flat = np.concatenate([np.asarray(s).ravel() for s in seqs])
-        out[np.arange(N, dtype=np.int32)[None, :] < lens[:, None]] = flat
-    return out, lens
+def pad_pairs(enc_as, enc_bs, NA, NB, staging=None):
+    """The pairs zero-padded to [B, NA] / [B, NB] int32, and their lengths:
+    numpy (aseq, bseq, lens_a, lens_b), new arrays, or with `staging`
+    (device.Staging) views of its next upload slot, for staging.send()."""
+    B = len(enc_as)
+    aseq, bseq, lens_a, lens_b = host_arrays(
+        staging, ((B, NA), np.int32), ((B, NB), np.int32), ((B,), np.int32),
+        ((B,), np.int32))
+    lens_a[:] = fill_rows(aseq, enc_as)
+    lens_b[:] = fill_rows(bseq, enc_bs)
+    return aseq, bseq, lens_a, lens_b
 
 
-def _pad_batch(enc_as, enc_bs, quantum):
+def _pad_batch(enc_as, enc_bs, quantum, staging=None):
+    """pad_pairs to the pairs' maxima rounded up to the quantum."""
     na = max(len(a) for a in enc_as)
     nb = max(len(b) for b in enc_bs)
     NA = max(_round_up(na, quantum), quantum)
     NB = max(_round_up(nb, quantum), quantum)
-    aseq, lens_a = _pad_rows(enc_as, NA)
-    bseq, lens_b = _pad_rows(enc_bs, NB)
-    return aseq, bseq, lens_a, lens_b
+    return pad_pairs(enc_as, enc_bs, NA, NB, staging)
 
 
 def fused_align_ops(aseq, bseq, lens_a, lens_b, table, gap_consts, *, k,
@@ -241,20 +244,19 @@ def viterbi_align_batch(
             max_b = min(max_b, -(-len(idxs) // len(lanes)))
         for s in range(0, len(idxs), max_b):
             chunk = idxs[s : s + max_b]
-            aseq, bseq, la, lb = _pad_batch(
-                [enc_as[i] for i in chunk], [enc_bs[i] for i in chunk], quantum
-            )
             lane = lanes[n_launched % len(lanes)]
             n_launched += 1
+            aseq, bseq, la, lb = _pad_batch(
+                [enc_as[i] for i in chunk], [enc_bs[i] for i in chunk], quantum,
+                lane.staging)
             p = params[lane.device]
             p.check_codes(aseq, bseq)
             with lane.context():
                 ops, score = fused_align_ops(
-                    *(upload(x, lane.device) for x in (aseq, bseq, la, lb)),
-                    p.table, p.gap_consts, k=k,
+                    *lane.staging.send(), p.table, p.gap_consts, k=k,
                     max_steps=max(1, int(np.max(la + lb))),
                 )
-                inflight.append((chunk, download(ops, score)))
+                inflight.append((chunk, lane.staging.fetch(ops, score)))
             lane.chunks += 1
 
     # long pairs after the buckets, on the first lane, so the card works on
@@ -264,17 +266,16 @@ def viterbi_align_batch(
         with first.context():
             inflight.append((grp, longseq.enqueue_long_group(
                 [enc_as[i] for i in grp], [enc_bs[i] for i in grp],
-                params[first.device], first.device)))
+                params[first.device], first)))
         first.chunks += 1
 
     results: list[AlignResult | None] = [None] * len(enc_as)
-    for chunk, ((ops, score), ev) in inflight:
-        if ev is not None:
-            ev.synchronize()
-        out = ops_to_strings(
-            ops.numpy()[::-1], score.numpy(),
-            [a_strs[i] for i in chunk], [b_strs[i] for i in chunk], k,
-        )
+    for chunk, fetch in inflight:
+        with fetch as (ops, score):
+            out = ops_to_strings(
+                ops[::-1], score,
+                [a_strs[i] for i in chunk], [b_strs[i] for i in chunk], k,
+            )
         for i, r in zip(chunk, out):
             results[i] = r
     return results  # type: ignore[return-value]
@@ -349,7 +350,7 @@ def enqueue_scores(enc_as, enc_bs, k, lane, params, quantum: int = 96,
                    max_batch_bytes: int = SCORE_BATCH_BYTES) -> list:
     """Phase 1 of viterbi_scores_batch on one lane: every launch that
     score_chunks plans, enqueued with its upload and download. Returns
-    [(pair indices, what device.download returned), ...]."""
+    [(pair indices, device.Fetch of the corners), ...]."""
     dev = lane.device
     p = params[dev]
     sms = (torch.cuda.get_device_properties(dev).multi_processor_count
@@ -358,24 +359,22 @@ def enqueue_scores(enc_as, enc_bs, k, lane, params, quantum: int = 96,
     for chunk in score_chunks([len(a) for a in enc_as], [len(b) for b in enc_bs],
                               k, quantum, max_batch_bytes, sms):
         aseq, bseq, la, lb = _pad_batch(
-            [enc_as[i] for i in chunk], [enc_bs[i] for i in chunk], quantum
-        )
+            [enc_as[i] for i in chunk], [enc_bs[i] for i in chunk], quantum,
+            lane.staging)
         p.check_codes(aseq, bseq)
         with lane.context():
-            corners = _score.wavefront_score(
-                *(upload(x, dev) for x in (aseq, bseq, la, lb)),
-                p.table, p.gap_consts, k=k)
-            inflight.append((chunk, download(corners)))
+            corners = _score.wavefront_score(*lane.staging.send(), p.table,
+                                             p.gap_consts, k=k)
+            inflight.append((chunk, lane.staging.fetch(corners)))
     return inflight
 
 
 def collect_scores(inflight, n: int) -> np.ndarray:
     """Phase 2 of viterbi_scores_batch: the [n] f32 scores, in input order."""
     scores = np.zeros(n, dtype=np.float32)
-    for chunk, ((corners,), ev) in inflight:
-        if ev is not None:
-            ev.synchronize()
-        scores[chunk] = corners.numpy().max(axis=0)
+    for chunk, fetch in inflight:
+        with fetch as (corners,):
+            scores[chunk] = corners.max(axis=0)
     return scores
 
 

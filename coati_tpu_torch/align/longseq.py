@@ -30,7 +30,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from coati_tpu_torch.device import download, resolve_device, upload
+from coati_tpu_torch.device import lane_of
 from coati_tpu_torch.kernels import traceback_walk as _walk
 from coati_tpu_torch.kernels import wavefront_segment as _seg
 from coati_tpu_torch.params import params_from_numpy
@@ -84,20 +84,15 @@ def long_batch_width(nb: int, k: int = 1) -> int:
     return width
 
 
-def _pad_group(enc_as, enc_bs):
+def _pad_group(enc_as, enc_bs, staging=None):
     """Pad a group of encoded pairs to one shared [B, NA] / [B, NB] shape
-    (the group's maxima). Returns numpy (aseq, bseq, lens_a, lens_b)."""
-    B = len(enc_as)
+    (the group's maxima). Returns numpy (aseq, bseq, lens_a, lens_b), as
+    engine.pad_pairs does (with `staging`, views of its next upload slot)."""
+    from coati_tpu_torch.align.engine import pad_pairs
+
     NA = max(1, max(len(a) for a in enc_as))
     NB = max(1, max(len(b) for b in enc_bs))
-    aseq = np.zeros((B, NA), np.int32)
-    bseq = np.zeros((B, NB), np.int32)
-    for p, (a, b) in enumerate(zip(enc_as, enc_bs)):
-        aseq[p, : len(a)] = a
-        bseq[p, : len(b)] = b
-    la = np.fromiter((len(a) for a in enc_as), np.int32, count=B)
-    lb = np.fromiter((len(b) for b in enc_bs), np.int32, count=B)
-    return aseq, bseq, la, lb
+    return pad_pairs(enc_as, enc_bs, NA, NB, staging)
 
 
 def align_long_group(aseq, bseq, lens_a, lens_b, table, gap_consts, *, k: int,
@@ -152,19 +147,18 @@ def align_long_group(aseq, bseq, lens_a, lens_b, table, gap_consts, *, k: int,
     return ops, score
 
 
-def enqueue_long_group(enc_as, enc_bs, params, dev, seg_diagonals=None):
-    """Pad one group of encoded pairs, copy it to dev, enqueue its two passes
-    and the copy of the results back. Returns what device.download returns
-    for (ops, score): ops [max(la + lb), B] int8 walking backward, score [B]
-    f32. Nothing waits for the device."""
-    aseq, bseq, la, lb = _pad_group(enc_as, enc_bs)
+def enqueue_long_group(enc_as, enc_bs, params, lane, seg_diagonals=None):
+    """Pad one group of encoded pairs into the lane's staging, copy it to
+    the lane's device, enqueue its two passes and the copy of the results
+    back. Returns a device.Fetch of (ops, score): ops [max(la + lb), B] int8
+    walking backward, score [B] f32. Nothing waits for the device."""
+    aseq, bseq, la, lb = _pad_group(enc_as, enc_bs, lane.staging)
     params.check_codes(aseq, bseq)
     steps = max(1, int(np.max(la + lb)))
     ops, score = align_long_group(
-        *(upload(x, dev) for x in (aseq, bseq, la, lb)), params.table,
-        params.gap_consts, k=params.k, seg_diagonals=seg_diagonals,
-        max_corner=steps + 2 * (params.k - 1))
-    return download(ops[:steps], score)
+        *lane.staging.send(), params.table, params.gap_consts, k=params.k,
+        seg_diagonals=seg_diagonals, max_corner=steps + 2 * (params.k - 1))
+    return lane.staging.fetch(ops[:steps], score)
 
 
 def viterbi_align_long_batch(enc_as, enc_bs, a_strs, b_strs, table, gap, *,
@@ -175,17 +169,15 @@ def viterbi_align_long_batch(enc_as, enc_bs, a_strs, b_strs, table, gap, *,
     and scores are those of the full-backpointer path.
 
     seg_diagonals: diagonals a segment (default: as many as fit
-    BP_BUDGET_BYTES)."""
+    BP_BUDGET_BYTES). device: a name or a device.Lane."""
     from coati_tpu_torch.align.engine import ops_to_strings
 
-    dev = resolve_device(device)
-    params = params_from_numpy(table, gap, dev)
-    (ops, score), ev = enqueue_long_group(enc_as, enc_bs, params, dev,
-                                          seg_diagonals)
-    if ev is not None:
-        ev.synchronize()
-    return ops_to_strings(ops.numpy()[::-1], score.numpy(), a_strs, b_strs,
-                          params.k)
+    lane = lane_of(device)
+    params = params_from_numpy(table, gap, lane.device)
+    with lane.context():
+        fetch = enqueue_long_group(enc_as, enc_bs, params, lane, seg_diagonals)
+    with fetch as (ops, score):
+        return ops_to_strings(ops[::-1], score, a_strs, b_strs, params.k)
 
 
 def viterbi_align_long(enc_a, enc_b, a_str, b_str, table, gap, *,

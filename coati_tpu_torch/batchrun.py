@@ -233,7 +233,7 @@ def batch_align(
                     with lanes[0].context():
                         trip = triplet_align_batch(
                             triplet_model, list(zip(astrs, bstrs)),
-                            device=lanes[0].device, enc=list(zip(enc_as, enc_bs)))
+                            device=lanes[0], enc=list(zip(enc_as, enc_bs)))
                     return [AlignResult(s0, s1, sc) for s0, s1, sc in trip]
                 return viterbi_align_batch(
                     enc_as, enc_bs, astrs, bstrs, aln.subst_matrix, aln.gap,

@@ -12,9 +12,8 @@ import functools
 from pathlib import Path
 
 import numpy as np
-from scipy.linalg import expm
-
 from coati_tpu_torch.constants import AMINO_GROUP, CODON_NUC
+from coati_tpu_torch.models.mg94 import expm_once
 
 _DATA = Path(__file__).resolve().parent.parent / "data" / "ecm.npz"
 
@@ -70,4 +69,4 @@ def ecm_p(br_len: float, omega: float) -> np.ndarray:
     row_sum = q.sum(axis=1)
     q[np.diag_indices(61)] = -row_sum
     d = float((pi * row_sum).sum())
-    return expm(q * (float(br_len) / d))
+    return expm_once(q * (float(br_len) / d))

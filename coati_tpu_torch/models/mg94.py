@@ -8,10 +8,28 @@ we compute it in f64 for accuracy and vectorize the Q construction.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 from scipy.linalg import expm
 
 from coati_tpu_torch.constants import AMINO_GROUP, CODON_NUC, YANG_1994_NUC_Q
+
+
+@functools.lru_cache(maxsize=64)
+def _expm_of(q_bytes: bytes, n: int) -> np.ndarray:
+    p = expm(np.frombuffer(q_bytes).reshape(n, n))
+    p.setflags(write=False)
+    return p
+
+
+def expm_once(q: np.ndarray) -> np.ndarray:
+    """expm(q) of a square float64 matrix, computed once for equal bytes (a
+    new array each call). scipy runs it in a BLAS thread pool whose threads
+    keep the host's cores busy for a while after each call, so a caller that
+    aligns batch after batch under one model must not run it each time."""
+    q = np.ascontiguousarray(q, dtype=np.float64)
+    return _expm_of(q.tobytes(), q.shape[0]).copy()
 
 
 def gtr_q(pi, sigma) -> np.ndarray:
@@ -82,4 +100,4 @@ def mg94_p(br_len, omega, pi, sigma=None) -> np.ndarray:
     if br_len <= 0:
         raise ValueError("Branch length must be positive.")
     q, d = mg94_q(omega, pi, sigma)
-    return expm(q * (float(br_len) / d))
+    return expm_once(q * (float(br_len) / d))

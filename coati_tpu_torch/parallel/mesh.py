@@ -4,13 +4,14 @@ Counterpart of coati_tpu/parallel/mesh.py. The workload is data-parallel
 over sequence pairs: the model tables are tiny and go to each device once,
 the pair batch is cut into contiguous shards, one a lane, each shard runs
 the single-device engine's own step on its lane's stream, and only op codes
-and scores come back, gathered in input order. torch has no shard_map; a
-mesh here is a list of lanes (device.resolve_devices) on one "data" axis. A
-pair's result does not depend on its shard, bucket or chunk, so every entry
-point gives the single-device results, bit for bit. Each shard is its own
-list on its own lane, so, unlike the JAX package's shard_map, nothing needs
-equal shards: the shards are ceil(n / lanes) long, the last one ragged, and
-nothing is padded.
+and scores come back, gathered in input order, through each lane's staging
+(device.Staging). torch has no shard_map; a mesh here is a list of lanes
+(device.resolve_devices) on one "data" axis. A pair's result does not
+depend on its shard, bucket or chunk, so every entry point gives the
+single-device results, bit for bit. Each shard is its own list on its own
+lane, so, unlike the JAX package's shard_map, nothing needs equal shards:
+the shards are ceil(n / lanes) long, the last one ragged, and nothing is
+padded.
 """
 
 from __future__ import annotations
@@ -21,7 +22,7 @@ import numpy as np
 import torch
 
 from coati_tpu_torch.align import engine
-from coati_tpu_torch.device import Lane, download, resolve_devices, upload
+from coati_tpu_torch.device import Lane, resolve_devices
 
 
 @dataclasses.dataclass
@@ -94,18 +95,20 @@ def sharded_align_step(aseq, bseq, lens_a, lens_b, table, gap_consts, *, k,
                               torch.from_numpy(gc32).to(dev))
         tbl, gc = on_device[dev]
         lane.share(tbl, gc)
-        rows = [np.ascontiguousarray(x[lo:hi]) for x in (aseq, bseq, lens_a, lens_b)]
+        shard = [x[lo:hi] for x in (aseq, bseq, lens_a, lens_b)]
+        for dst, x in zip(lane.staging.stage(*((x.shape, x.dtype) for x in shard)),
+                          shard):
+            dst[...] = x
         with lane.context():
             ops, score = engine.fused_align_ops(
-                *(upload(x, dev) for x in rows), tbl, gc, k=k,
-                max_steps=max(1, int(np.max(rows[2] + rows[3]))))
-            inflight.append(download(ops, score))
+                *lane.staging.send(), tbl, gc, k=k,
+                max_steps=max(1, int(np.max(shard[2] + shard[3]))))
+            inflight.append(lane.staging.fetch(ops, score))
     ops_out, scores = [], []
-    for (ops, score), ev in inflight:
-        if ev is not None:
-            ev.synchronize()
-        ops_out.append(ops.numpy())
-        scores.append(score.numpy())
+    for fetch in inflight:
+        with fetch as (ops, score):
+            ops_out.append(ops.copy())
+            scores.append(score.copy())
     steps = max(o.shape[0] for o in ops_out)
     ops_out = [np.concatenate([o, np.full((steps - o.shape[0], o.shape[1]), -1, np.int8)])
                for o in ops_out]
@@ -145,12 +148,12 @@ def sharded_triplet_align_batch(model, pairs, mesh: Mesh):
             with lane.context():
                 if long:
                     out[idxs[0]] = tw.triplet_align_long(
-                        model, *pairs[idxs[0]], device=lane.device)
+                        model, *pairs[idxs[0]], device=lane)
                 else:
                     inflight.append((idxs, tw.enqueue_group(
-                        model, [enc[i] for i in idxs], lane.device)))
-    for idxs, downloaded in inflight:
-        for i, r in zip(idxs, tw.decode_group([pairs[i] for i in idxs], downloaded)):
+                        model, [enc[i] for i in idxs], lane)))
+    for idxs, fetch in inflight:
+        for i, r in zip(idxs, tw.decode_group([pairs[i] for i in idxs], fetch)):
             out[i] = r
     return out
 
@@ -194,12 +197,12 @@ def sharded_sample_batch(mdi, corners, enc_a, enc_b, table, a: str, b: str,
         with lane.context():
             for c in range(lo, hi, SAMPLE_CHUNK):
                 cols = u[:, c:min(hi, c + SAMPLE_CHUNK)].contiguous()
-                inflight.append(download(*sample_walk(m, ea, eb, tbl, gc, cols, k=k)))
+                inflight.append(lane.staging.fetch(
+                    *sample_walk(m, ea, eb, tbl, gc, cols, k=k)))
     out = []
-    for (ops, scores), ev in inflight:
-        if ev is not None:
-            ev.synchronize()
-        nb = ops.shape[1]
-        strings = native.ops_to_strings_native(ops.numpy()[::-1], [a] * nb, [b] * nb, k)
-        out += [(s0, s1, float(sc)) for (s0, s1), sc in zip(strings, scores.numpy())]
+    for fetch in inflight:
+        with fetch as (ops, scores):
+            nb = ops.shape[1]
+            strings = native.ops_to_strings_native(ops[::-1], [a] * nb, [b] * nb, k)
+            out += [(s0, s1, float(sc)) for (s0, s1), sc in zip(strings, scores)]
     return out

@@ -6,7 +6,8 @@ triplet_wavefront.triplet_align_batch over N tri-mg pairs of NT nt
 mean of --reps runs after a warm-up:
 
   encode   - encode_triplet_pair per pair (host)
-  pack     - padding, the insertion offsets and the tables, and the upload
+  pack     - padding into the staging (device.Staging), the insertion offsets
+             and the tables, and the upload
   rows     - the forward rows kernel (kernels/triplet_rows.py)
   walk     - the terminal pick and the walk kernel (kernels/triplet_walk.py)
   fetch    - the copy of the op rows, states and scores back
@@ -33,7 +34,7 @@ import numpy as np
 
 def run(device: str = "cuda", nt: int = 999, n: int = 64, reps: int = 3) -> dict:
     from coati_tpu_torch import triplet_wavefront as tw
-    from coati_tpu_torch.device import download, upload
+    from coati_tpu_torch.device import Lane
     from coati_tpu_torch.structs import AlignmentParams
     from coati_tpu_torch.tools.common import device_and_label, elapsed_ms, sync
     from coati_tpu_torch.tools.inputs import make_pairs
@@ -59,19 +60,25 @@ def run(device: str = "cuda", nt: int = 999, n: int = 64, reps: int = 3) -> dict
            for ea, ed in enc):
         raise ValueError("the probe takes a batch of one sub-batch")
 
+    lane = Lane(dev)
+
     def pack():
-        anc_p, des_p, lens_t, lens_m, ins_off, tables, _ = tw._pack_batch(
-            model, [e[0] for e in enc], [e[1] for e in enc], dev)
-        args = tuple(upload(x, dev) for x in (anc_p, des_p, ins_off, lens_t, lens_m))
-        return args, tables
+        tables = tw._pack_batch(model, [e[0] for e in enc], [e[1] for e in enc],
+                                dev, lane.staging)[5]
+        aj, dj, lt, lm, io = lane.staging.send()
+        return (aj, dj, io, lt, lm), tables
+
+    def fetch():
+        with lane.staging.fetch(ops, state, score):
+            pass
 
     t_pack, (args, tables) = host_ms(pack)
     t_rows = elapsed_ms(lambda: tw._triplet_rows(*args, *tables), dev, reps)
     grid, amax = tw._triplet_rows(*args, *tables)
     t_walk = elapsed_ms(lambda: tw._triplet_traceback(grid, amax, *args, *tables), dev, reps)
     ops, state, score = tw._triplet_traceback(grid, amax, *args, *tables)
-    t_fetch = elapsed_ms(lambda: download(ops, state, score), dev, reps)
-    got = download(ops, state, score)
+    t_fetch = elapsed_ms(fetch, dev, reps)
+    got = lane.staging.fetch(ops, state, score)
     t_dec, steps = host_ms(lambda: tw.decode_group(pairs, got))
     t_e2e, whole = host_ms(lambda: tw.triplet_align_batch(model, pairs, device=dev))
     if steps != whole:

@@ -7,7 +7,8 @@ at a time, timed apart, by chunk:
 
   encode  - as batch_align does: batchrun.encode_marginal_chunk over chunks of
             2,048 pairs (end stops trimmed, one pass over each chunk)
-  prep    - bucketing by padded shape and the numpy padding of each chunk
+  prep    - bucketing by padded shape and the padding of each chunk into the
+            lane's staging (device.Staging)
   launch  - the host's time to upload a chunk and enqueue its kernels and copy
   fill, walk, copy - device milliseconds of the fill kernel, the walk kernel
             and the copy of ops and scores back (CUDA events; on the CPU the
@@ -40,7 +41,7 @@ def run(device: str = "cuda", n_pairs: int = 10_000, passes: int = 3,
 
     from coati_tpu_torch.align import engine, longseq
     from coati_tpu_torch.batchrun import encode_marginal_chunk
-    from coati_tpu_torch.device import download, upload
+    from coati_tpu_torch.device import Lane
     from coati_tpu_torch.kernels import traceback_walk as walk_k
     from coati_tpu_torch.kernels import wavefront_fill as fill_k
     from coati_tpu_torch.params import alignment_params, params_from_numpy
@@ -56,6 +57,7 @@ def run(device: str = "cuda", n_pairs: int = 10_000, passes: int = 3,
     params = params_from_numpy(aln.subst_matrix, gap, dev)
     quantum, max_batch_cells = 96, 1 << 30
     on_card = dev.type == "cuda"
+    lane = Lane(dev)
 
     def mark():
         if not on_card:
@@ -95,10 +97,11 @@ def run(device: str = "cuda", n_pairs: int = 10_000, passes: int = 3,
                 chunk = idxs[s: s + max_b]
                 t0 = time.perf_counter()
                 aseq, bseq, la, lb = engine._pad_batch(
-                    [enc_as[i] for i in chunk], [enc_bs[i] for i in chunk], quantum)
+                    [enc_as[i] for i in chunk], [enc_bs[i] for i in chunk], quantum,
+                    lane.staging)
                 params.check_codes(aseq, bseq)
                 t1 = time.perf_counter()
-                args = [upload(x, dev) for x in (aseq, bseq, la, lb)]
+                args = lane.staging.send()
                 marks = [mark()]
                 corners, bp = fill_k.wavefront_fill(*args, params.table,
                                                     params.gap_consts, k=k)
@@ -106,7 +109,7 @@ def run(device: str = "cuda", n_pairs: int = 10_000, passes: int = 3,
                 ops, score = walk_k.traceback_walk(bp, corners, args[2], args[3], k=k,
                                                    max_steps=max(1, int(np.max(la + lb))))
                 marks.append(mark())
-                got = download(ops, score)
+                got = lane.staging.fetch(ops, score)
                 marks.append(mark())
                 t2 = time.perf_counter()
                 t_prep += t1 - t0
@@ -119,14 +122,13 @@ def run(device: str = "cuda", n_pairs: int = 10_000, passes: int = 3,
         t_strings = 0.0
         results = [None] * len(pairs)
         chunks = []
-        for shape, chunk, ((ops, score), ev), marks, pad_ms in inflight:
-            if ev is not None:
-                ev.synchronize()
-            t0 = time.perf_counter()
-            out = engine.ops_to_strings(ops.numpy()[::-1], score.numpy(),
-                                        [astrs[i] for i in chunk],
-                                        [bstrs[i] for i in chunk], k)
-            dt = time.perf_counter() - t0
+        for shape, chunk, got, marks, pad_ms in inflight:
+            with got as (ops, score):
+                t0 = time.perf_counter()
+                out = engine.ops_to_strings(ops[::-1], score,
+                                            [astrs[i] for i in chunk],
+                                            [bstrs[i] for i in chunk], k)
+                dt = time.perf_counter() - t0
             t_strings += dt
             for i, r in zip(chunk, out):
                 results[i] = r

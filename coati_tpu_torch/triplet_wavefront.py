@@ -22,7 +22,7 @@ import numpy as np
 import torch
 
 from coati_tpu_torch import constants as C
-from coati_tpu_torch.device import download, resolve_device, upload
+from coati_tpu_torch.device import fill_rows, host_arrays, lane_of
 from coati_tpu_torch.kernels import triplet_rows as rows_k
 from coati_tpu_torch.kernels import triplet_walk as walk_k
 from coati_tpu_torch.kernels.triplet_rows import NEG, triplet_rows_plain  # noqa: F401
@@ -69,21 +69,19 @@ def triplet_tables(model, device):
             torch.from_numpy(gc).to(device))
 
 
-def _pack_batch(model, anc_encs, des_encs, device):
+def _pack_batch(model, anc_encs, des_encs, device, staging=None):
     """Pad a batch to its maxima. Returns numpy (anc_p [B, n_cod], des_p [B,
-    m], lens_t, lens_m, ins_off [B, m + 1]), the tables on `device`, n_cod."""
+    m], lens_t, lens_m, ins_off [B, m + 1]), new arrays or with `staging`
+    (device.Staging) views of its next upload slot, in that order for
+    staging.send(); the tables on `device`; n_cod."""
     B = len(anc_encs)
     n_cod = max(len(a) for a in anc_encs)
     m = max(len(d) for d in des_encs)
-    anc_p = np.zeros((B, n_cod), np.int32)
-    des_p = np.zeros((B, m), np.int32)
-    lens_t = np.zeros(B, np.int32)
-    lens_m = np.zeros(B, np.int32)
-    for i, (a, d) in enumerate(zip(anc_encs, des_encs)):
-        anc_p[i, : len(a)] = a
-        des_p[i, : len(d)] = d
-        lens_t[i] = len(a)
-        lens_m[i] = len(d)
+    anc_p, des_p, lens_t, lens_m, ins_off = host_arrays(
+        staging, ((B, n_cod), np.int32), ((B, m), np.int32), ((B,), np.int32),
+        ((B,), np.int32), ((B, m + 1), np.float32))
+    lens_t[:] = fill_rows(anc_p, anc_encs)
+    lens_m[:] = fill_rows(des_p, des_encs)
 
     # insertion run offsets on host numpy f32: the same sequential cumsum and
     # grouping as triplet_hmm._DP, so the host and device walks see the same
@@ -91,11 +89,9 @@ def _pack_batch(model, anc_encs, des_encs, device):
     # pair's own length continue its prefix and are never read
     ge32 = np.float32(model.ge)
     e = model.ins_emit[des_p].astype(np.float32)  # [B, m]
-    cumE = np.concatenate(
-        [np.zeros((B, 1), np.float32), np.cumsum(e, axis=1, dtype=np.float32)],
-        axis=1,
-    )
-    ins_off = cumE + ge32 * np.arange(m + 1, dtype=np.float32)[None, :]
+    ins_off[:, 0] = 0
+    np.cumsum(e, axis=1, dtype=np.float32, out=ins_off[:, 1:])
+    ins_off += ge32 * np.arange(m + 1, dtype=np.float32)[None, :]
     return (anc_p, des_p, lens_t, lens_m, ins_off,
             triplet_tables(model, device), n_cod)
 
@@ -180,12 +176,12 @@ def triplet_align_long(model, anc: str, des: str, *, seg_cods: int | None = None
 
     if not model.codon:
         raise ValueError("segmented triplet path requires a codon model")
-    dev = resolve_device(device)
+    lane = lane_of(device)
+    dev = lane.device
     ea, ed = encode_triplet_pair(model, anc, des)
-    anc_p, des_p, lens_t, lens_m, ins_off, tables, n_cod = _pack_batch(
-        model, [ea], [ed], dev)
-    aj, dj, io, lt, lm = (upload(x, dev) for x in (anc_p, des_p, ins_off,
-                                                    lens_t, lens_m))
+    _, des_p, _, _, _, tables, n_cod = _pack_batch(model, [ea], [ed], dev,
+                                                   lane.staging)
+    aj, dj, lt, lm, io = lane.staging.send()
     Cc = des_p.shape[1] + 1
     S = min(int(seg_cods) if seg_cods else seg_cods_for(Cc), n_cod)
     spans = [(t_lo, min(S, n_cod - t_lo)) for t_lo in range(0, n_cod, S)]
@@ -217,10 +213,10 @@ def triplet_align_long(model, anc: str, des: str, *, seg_cods: int | None = None
                             aj[:, t_lo:t_lo + S_i].contiguous(), dj, io, t_lo,
                             state, ops, *tables)
 
-    ops_h, state_h, score_h = (x.cpu().numpy() for x in (ops, state, score))
-    s0, s1 = _decode_ops(anc, des, ops_h[:, 0], int(state_h[0, 0]),
-                         int(state_h[1, 0]))
-    return s0, s1, float(-score_h[0])
+    with lane.staging.fetch(ops, state, score) as (ops_h, state_h, score_h):
+        s0, s1 = _decode_ops(anc, des, ops_h[:, 0], int(state_h[0, 0]),
+                             int(state_h[1, 0]))
+        return s0, s1, float(-score_h[0])
 
 
 def triplet_boundaries_batch(model, anc_encs, des_encs, device="cuda"):
@@ -230,11 +226,10 @@ def triplet_boundaries_batch(model, anc_encs, des_encs, device="cuda"):
     arrays. Returns the boundary grid [n_cod_max + 1, 3, B, Cc] as numpy f32
     (what lies beyond a pair's own n_cod rows and m + 1 columns is padding,
     uninitialized when it comes from a CUDA device)."""
-    dev = resolve_device(device)
-    anc_p, des_p, lens_t, lens_m, ins_off, tables, _ = _pack_batch(
-        model, anc_encs, des_encs, dev)
-    args = (upload(x, dev) for x in (anc_p, des_p, ins_off, lens_t, lens_m))
-    grid, _ = _triplet_rows(*args, *tables)
+    lane = lane_of(device)
+    tables = _pack_batch(model, anc_encs, des_encs, lane.device, lane.staging)[5]
+    aj, dj, lt, lm, io = lane.staging.send()
+    grid, _ = _triplet_rows(aj, dj, io, lt, lm, *tables)
     return grid.cpu().numpy()
 
 
@@ -289,47 +284,47 @@ def _sub_batches(enc):
         yield cur, False
 
 
-def _group_rows(model, enc, dev):
-    """Pack and upload one sub-batch of encoded pairs and enqueue its forward
-    rows: ((anc, des, ins_off, lens_t, lens_m) on dev, tables, grid, amax)."""
-    anc_p, des_p, lens_t, lens_m, ins_off, tables, _ = _pack_batch(
-        model, [e[0] for e in enc], [e[1] for e in enc], dev)
-    args = tuple(upload(x, dev) for x in (anc_p, des_p, ins_off, lens_t, lens_m))
+def _group_rows(model, enc, lane):
+    """Pack one sub-batch of encoded pairs into the lane's staging, upload it
+    and enqueue its forward rows: ((anc, des, ins_off, lens_t, lens_m) on
+    the lane's device, tables, grid, amax)."""
+    tables = _pack_batch(model, [e[0] for e in enc], [e[1] for e in enc],
+                         lane.device, lane.staging)[5]
+    aj, dj, lt, lm, io = lane.staging.send()
+    args = (aj, dj, io, lt, lm)
     return (args, tables, *_triplet_rows(*args, *tables))
 
 
-def enqueue_group(model, enc, dev):
+def enqueue_group(model, enc, lane):
     """One sub-batch of encoded pairs through the forward rows and the device
-    traceback on the current stream, and the copy of the results back:
-    returns what device.download returns for (run-encoded ops, state,
+    traceback on the current stream, and the copy of the results back into
+    the lane's staging: returns a device.Fetch of (run-encoded ops, state,
     score). Nothing waits for the device but the tables' copies."""
-    args, tables, grid, amax = _group_rows(model, enc, dev)
-    return download(*_triplet_traceback(grid, amax, *args, *tables))
+    args, tables, grid, amax = _group_rows(model, enc, lane)
+    return lane.staging.fetch(*_triplet_traceback(grid, amax, *args, *tables))
 
 
-def decode_group(pairs, downloaded):
+def decode_group(pairs, fetch):
     """[(seq0, seq1, score), ...] of `pairs` from what enqueue_group
     returned for them, once the device is done."""
-    (ops, state, score), ev = downloaded
-    if ev is not None:
-        ev.synchronize()
-    ops, state, score = (x.numpy() for x in (ops, state, score))
     out = []
-    for b, (anc, des) in enumerate(pairs):
-        s0, s1 = _decode_ops(anc, des, ops[:, b], int(state[0, b]),
-                             int(state[1, b]))
-        out.append((s0, s1, float(-score[b])))
+    with fetch as (ops, state, score):
+        for b, (anc, des) in enumerate(pairs):
+            s0, s1 = _decode_ops(anc, des, ops[:, b], int(state[0, b]),
+                                 int(state[1, b]))
+            out.append((s0, s1, float(-score[b])))
     return out
 
 
-def _align_group(model, pairs, enc, traceback, dev):
+def _align_group(model, pairs, enc, traceback, device):
     """One sub-batch through the forward rows and the traceback."""
     from coati_tpu_torch.triplet_hmm import _DP, traceback_from_boundaries
 
+    lane = lane_of(device)
     if traceback == "device":
-        return decode_group(pairs, enqueue_group(model, enc, dev))
+        return decode_group(pairs, enqueue_group(model, enc, lane))
 
-    grid = _group_rows(model, enc, dev)[2].cpu().numpy()
+    grid = _group_rows(model, enc, lane)[2].cpu().numpy()
     out = []
     for b, ((anc, des), (ea, ed)) in enumerate(zip(pairs, enc)):
         ncb, Ccb = len(ea), len(ed) + 1
@@ -355,12 +350,13 @@ def triplet_align_batch(model, pairs, traceback: str = "device",
     (the dna model goes to that host engine: its one-lane rows are cheap there
     and its boundary grid would hold every row). The result depends on none
     of the byte budgets that cut the batch. enc, when given, is each pair's
-    encode_triplet_pair result, for a caller that has encoded them already."""
+    encode_triplet_pair result, for a caller that has encoded them already.
+    device: a name or a device.Lane, whose staging the sub-batches reuse."""
     from coati_tpu_torch.triplet_hmm import encode_triplet_pair, triplet_align
 
     if traceback not in ("device", "host"):
         raise ValueError(f"traceback must be 'device' or 'host', got {traceback!r}")
-    dev = resolve_device(device)
+    lane = lane_of(device)
     if not model.codon:
         return [triplet_align(model, a, d) for a, d in pairs]
 
@@ -370,10 +366,10 @@ def triplet_align_batch(model, pairs, traceback: str = "device",
         out = [None] * len(pairs)
         for idxs, long in _sub_batches(enc):
             if long:
-                res = [triplet_align_long(model, *pairs[idxs[0]], device=dev)]
+                res = [triplet_align_long(model, *pairs[idxs[0]], device=lane)]
             else:
                 res = _align_group(model, [pairs[i] for i in idxs],
-                                   [enc[i] for i in idxs], traceback, dev)
+                                   [enc[i] for i in idxs], traceback, lane)
             for i, r in zip(idxs, res):
                 out[i] = r
         return out
