@@ -23,19 +23,29 @@ Phases, each printing lines (any failure raises, exit code non-zero):
              walk, equal to the plain fill and walk, and the score kernel
              through the sweep, equal to plain.
              Segment kernel, score kernel forced onto each route of the
-             sweep, and segment walk (a warp a pair, windows): k=1, 3 and 5,
-             ragged groups with IUPAC and gap codes, a segment length that
-             does not divide the diagonals, each route of the sweep (one
-             block a pair with the ring in shared or in global memory;
-             several blocks a pair as bands of columns, band widths that are
-             not a multiple of the threads, groups where some bands hold no
-             cell of a short pair; at the all-to-all barrier, forced, k=1
-             and 3); every launch must take its case's route, the band route
+             sweep, and segment walk (a warp a pair, windows) at the gap
+             lengths they serve, above the strip body's (k=9, and 12 on the
+             band route): ragged groups with IUPAC and gap codes, a segment
+             length that does not divide the diagonals, each route of the
+             sweep (one block a pair with the ring in shared or in global
+             memory; several blocks a pair as bands of columns, band widths
+             that are not a multiple of the threads, groups where some bands
+             hold no cell of a short pair; at the all-to-all barrier,
+             forced); every launch must take its case's route, the band route
              with no global ring; after every segment the ring and raw
              corners, the backpointers on true cells, the walk state and the
              ops. Everything must be bit-equal. Then a WATCHDOG_NT nt
              score-only sweep whose last band waits longer than a stalled
              wait may last, equal to the barrier route.
+             The long path on strips (k <= 8): the checkpointing score
+             kernel, the band fill and the band walk, band by band from the
+             last, k = 1, 3 and 8, ragged groups, a group spread over
+             several blocks a pair, forced shapes with stripe passes, and
+             strips of 16 over cooperative blocks (the 160 knt pair's);
+             the corners and every checkpoint entry the kernel defines,
+             each band's bp on its true cells, the walk state and ops after
+             every band bit-equal to plain, the end equal to the
+             whole-stack route.
              Forward kernel and sample walk: k=1, 3 and 5, ragged groups with
              all 15 IUPAC columns and the gap code, each route of the sweep;
              the corners and every M, D, I of each pair's rectangle within
@@ -72,26 +82,43 @@ Phases, each printing lines (any failure raises, exit code non-zero):
              then the same, unchecked, for sample at 9,999 nt x 200 and
              batch -m tri-mg at 64 x 999 nt.
 5. long    - batch_align over 1,000 pairs of the same mix plus four pairs of
-             29,397-31,998 nt, routed by the default thresholds, and
-             viterbi_scores_batch over the same pairs; counters reset just
-             before, read just after. Checks: every alignment ungaps to its
-             inputs; the four long pairs equal the full-backpointer fill +
-             walk route on the card and every score equals the score
-             kernel's; a two-pair 6-8 knt group through the long route in
-             several segments equals the plain versions end to end; the
-             pairs of tests/data/torch_long_path_golden.json, forced through
-             the long route, equal the JAX reference's results; the segment,
-             score and segment-walk kernels launched. Then one segment of
-             the four-pair group at its full shape: kernel against plain, on
-             the band route with no global ring; the score kernel over the
-             whole group on the strip route, the band route and at the
-             barrier, equal, timed in turns; and one pair of LONGPAIR_NT nt
-             through the CLI's alignpair: it ungaps to its inputs and its
-             score is the score kernel's, whose strip and band routes are
-             held equal and timed in turns.
+             29,397-31,998 nt at the default byte budget: every pair takes
+             the fill (the four pairs' stacks of rows fit it; no kernel of
+             the long path launches); the same with two pairs of 6-8 knt in
+             their place; then, with longseq.BP_BUDGET_BYTES at
+             LONG_PHASE_BUDGET, which the two pairs' stacks pass, they take
+             the long path on strips; counters reset just before, read just
+             after that run and viterbi_scores_batch over the same pairs.
+             Checks: every alignment ungaps to its inputs and the rows
+             path's equal the fill's row for row; every score equals the
+             score kernel's; the checkpointing score kernel, the band fill
+             and the band walk launched, and the segment kernel and segment
+             walk did not. Then the two pairs' group at its full shape:
+             pass 1 over the whole matrix, the middle band's fill and walk,
+             each against its plain version on the same inputs and timed;
+             the score kernel over the four 29-32 knt pairs on the strip
+             route, the band route and at the barrier, equal, timed in
+             turns; a two-pair 3-4 knt group through the long path in
+             several bands equals the plain versions end to end; the pairs
+             of tests/data/torch_long_path_golden.json, forced through the
+             long path, equal the JAX reference's results. Then a k = 9
+             batch (above the strip body's k) with four 24-25 knt pairs
+             whose stacks of diagonals pass the default budget: the sweep
+             with bp and the segment walk for the rest, the long pairs in
+             segments of diagonals (the segment kernel without and with
+             bp), nothing of the strips, every alignment equal to the
+             whole-matrix sweep's; the long group's middle segment at its
+             full shape against plain. And one pair of LONGPAIR_NT nt
+             through the CLI's alignpair: its stack of rows passes the
+             default budget, so it takes the long path on strips and the
+             segment kernels never launch; it ungaps to its inputs, its
+             score is the score kernel's (whose strip and band routes are
+             held equal and timed in turns) and the sum along its own path
+             as the fill sums it (path_score).
    lonepair - one LONE_NT nt pair through the CLI's alignpair and through
              batch_align: the fill and whole-stack walk launched once each
-             (spread over blocks), equal to the long path's alignment.
+             (spread over blocks), equal to the long path's alignment (the
+             long path on strips, forced by long_slots=0).
 6. numbers - warm alignments/s, device times from CUDA events, Gcells/s,
              kernel against plain times and bounds, peak device memory
              (printed last, after phases 7 and 8).
@@ -167,7 +194,8 @@ Phases, each printing lines (any failure raises, exit code non-zero):
              power limit), if vs_baseline is null, or if its stderr's kernel
              counts show a kernel of the bench's path never launched: the
              fill and walk, the Forward and sample walk, the triplet rows
-             and walk, the segment kernel and segment walk. Prints the line
+             and walk, the long path's checkpointing score kernel, band
+             fill and band walk. Prints the line
              and the bench's stderr but its unrounded record.
 
 Every line carries the seconds since the start; before phase 6's numbers a
@@ -209,8 +237,10 @@ from coati_tpu_torch import triplet_wavefront as tw  # noqa: E402
 from coati_tpu_torch.align import engine, longseq, sample_device  # noqa: E402
 from coati_tpu_torch.align.sample_device import sample_paths_plain  # noqa: E402
 from coati_tpu_torch.align.wavefront import (  # noqa: E402
+    band_fill_plain,
     traceback_plain,
     traceback_rows_plain,
+    walk_band_plain,
     walk_segment_plain,
     wavefront_plain,
 )
@@ -246,6 +276,25 @@ LONE_NT = 16_000
 # route, written and checked by tests/test_torch_golden.py
 LONG_GOLDEN = ROOT / "tests" / "data" / "torch_long_path_golden.json"
 LONG_GOLDEN_SLOTS = 1024  # long_slots that forces them
+# the long phase: two pairs of 6-8 knt, and a budget of device bytes for one
+# stack that their stacks of rows (36-64 MB) pass and the mix's do not, so
+# that they take the long path (read at the call, as a user may set it) at
+# a size the plain versions check at full shape in seconds
+ROWS_MIX = [(6000, 0.5), (7998, 0.5)]
+LONG_PHASE_BUDGET = 16 << 20
+# the kernels of the long path on strips (k <= 8), and those of the sweep
+# that the long path keeps above (K5 and the segment walk)
+LONG_KERNELS = ("wavefront_score_ckpt", "wavefront_fill_band", "traceback_walk_band")
+SEGMENT_KERNELS = ("wavefront_segment", "traceback_walk_segment")
+# gap length of the long phase's sweep run, above the strip body's; its
+# pairs (mix, long) and the long ones' sizes: stacks of diagonals of 1.1-1.2
+# GB a pair, over the default budget, so that the default routing sends them
+# down the diagonal long path
+K_SWEEP = fill_mod.MAX_K + 1
+SWEEP_PAIRS = (48, 4)
+SWEEP_LONG_MIX = [(23997, 0.5), (24993, 0.5)]
+# a budget no pair of the sweep run passes: every pair on the whole-matrix sweep
+WHOLE_SWEEP_BUDGET = 1 << 34
 # H100 SXM data sheet: HBM3 bytes/s, and f32 operations/s outside the tensor
 # cores (an FMA counted as two)
 PEAK_BYTES_S = 3.35e12
@@ -355,6 +404,23 @@ KERNELS = {
         "replaces": "coati_tpu/kernels/wavefront_pallas.py:330",
     },
     "traceback_walk_segment": {
+        "route": "cuda",
+        "source": "coati_tpu_torch/csrc/traceback_walk.cu",
+        "replaces": "coati_tpu/align/longseq.py:57",
+    },
+    # the long path on strips (k <= 8), in place of K5's two passes and the
+    # segment walk there
+    "wavefront_score_ckpt": {
+        "route": "cuda",
+        "source": "coati_tpu_torch/csrc/wavefront_fill_long.cu",
+        "replaces": "coati_tpu/kernels/wavefront_pallas.py:909",
+    },
+    "wavefront_fill_band": {
+        "route": "cuda",
+        "source": "coati_tpu_torch/csrc/wavefront_fill_long.cu",
+        "replaces": "coati_tpu/kernels/wavefront_pallas.py:909",
+    },
+    "traceback_walk_band": {
         "route": "cuda",
         "source": "coati_tpu_torch/csrc/traceback_walk.cu",
         "replaces": "coati_tpu/align/longseq.py:57",
@@ -472,6 +538,9 @@ PLAIN = {
     "wavefront_segment": _segment_plain,
     "wavefront_score": score_mod.score_plain,
     "traceback_walk_segment": walk_segment_plain,
+    "wavefront_score_ckpt": score_mod.ckpt_plain,
+    "wavefront_fill_band": band_fill_plain,
+    "traceback_walk_band": walk_band_plain,
     "triplet_rows": _triplet_rows_plain,
     "triplet_walk": twalk_mod.triplet_walk_plain,
 }
@@ -867,31 +936,121 @@ def _segment_case(dev, name, k, B, T, route, launch, aseq, bseq, la, lb, C, K,
 
 
 def phase_segment_kernels(dev):
-    """Every route of the sweep: one block a pair with the ring in shared or
-    global memory; several blocks a pair as bands (k = 1, 3, 5; band widths
-    that are not a multiple of the threads; a ragged group where some bands
-    hold no cell of a short pair) and at the all-to-all barrier (k = 1, 3);
-    then the band route's watchdog on a pair whose last band legitimately
-    waits longer than the stall limit."""
+    """Every route of the sweep at the gap lengths it still serves, above the
+    strip body's MAX_K (k = 9, and 12 on the band route): one block a pair
+    with the ring in shared or global memory; several blocks a pair as bands
+    (band widths that are not a multiple of the threads; a ragged group
+    where some bands hold no cell of a short pair) and at the all-to-all
+    barrier; then the band route's watchdog (which the Forward shares at
+    every k) on a pair whose last band legitimately waits longer than the
+    stall limit."""
     cases = [
-        ("ragged 1.5-2 knt", 1, 3, (1500, 2000), (1500, 2000), 777, "shared", 11),
-        ("ragged 1.5-2 knt, k=3", 3, 3, (1500, 2000), (1500, 2000), 777, "shared", 12),
-        ("wide descendants", 1, 3, (150, 300), (4200, 4400), 1000, "bands", 11),
-        ("wide descendants, k=3", 3, 3, (150, 300), (4200, 4400), 1000, "bands", 11),
-        ("wide descendants, k=5", 5, 3, (150, 300), (4200, 4400), 1000, "bands", 11),
-        ("ragged wide group, idle bands", 1, 3, (150, 300), (600, 4400), 1000,
+        ("ragged 1.5-1.8 knt, k=9", 9, 3, (1500, 1800), (1500, 1800), 777, "shared", 11),
+        ("wide descendants, k=9", 9, 3, (150, 300), (4200, 4400), 1000, "bands", 11),
+        ("wide descendants, k=12", 12, 3, (150, 300), (4200, 4400), 1000, "bands", 12),
+        ("ragged wide group, idle bands, k=9", 9, 3, (150, 300), (600, 4400), 1000,
          "bands", 12, True),
-        ("wide descendants at the barrier", 1, 3, (300, 600), (6500, 6600), 1000,
+        ("wide descendants at the barrier, k=9", 9, 3, (300, 600), (6500, 6600), 1000,
          "barrier", 13),
-        ("wide descendants at the barrier, k=3", 3, 3, (300, 600), (4900, 5100),
-         1000, "barrier", 14),
-        ("wide group of wide descendants", 1, 67, (150, 300), (6500, 6600), 1000,
+        ("wide group of wide descendants, k=9", 9, 67, (150, 300), (6500, 6600), 1000,
          "global", 17),
-        ("wide group of wide descendants, k=3", 3, 67, (150, 300), (4900, 5100),
-         1000, "global", 18),
     ]
     errs = [check_segment_case(dev, *c) for c in cases]
     check_band_watchdog(dev)
+    return max(e[0] for e in errs), max(e[1] for e in errs)
+
+
+def check_long_case(dev, name, k, B, la_range, lb_range, H, seed, shape=None):
+    """One ragged group through the long path's kernels on the fill's strips
+    and through their plain versions, band by band from the last: pass 1's
+    corners and checkpoint rows (on every entry the kernel defines), each
+    band's backpointers on its true cells, the band walk's state and ops
+    after every band, and at the end the ops and scores of the whole-stack
+    route (fused_align_ops) must be bit-equal. shape: (W, warps, blocks)
+    forced on both passes (stripe passes, several blocks a pair), else the
+    rules' launches (score_shape, band_shape)."""
+    aseq, bseq, la, lb = _random_group(seed, k, la_range, lb_range, B)
+    aln = alignment_params(gap_len=k)
+    p = params_from_numpy(aln.subst_matrix, aln.gap, dev)
+    tla, tlb = (torch.from_numpy(x).to(dev) for x in (la, lb))
+    args = (*(torch.from_numpy(x).to(dev) for x in (aseq, bseq)), tla, tlb,
+            p.table, p.gap_consts)
+    B, NA = aseq.shape
+    C = bseq.shape[1] + k
+    Cp = fill_mod.row_stride(C)
+    top = (int(la.max()) + k - 1) // H
+    launches = (None, None)
+    if shape is not None:
+        launches = tuple(fill_mod.fill_launch(B, C, k, *shape[:2], 1, shape[2],
+                                              widths=w)
+                         for w in (fill_mod.SCORE_WIDTHS, fill_mod.STRIP_WIDTHS))
+    adj_k, ck_k = score_mod.wavefront_score_ckpt(*args, k=k, band_rows=H,
+                                                 n_ckpt=top, launch=launches[0])
+    adj_p, ck_p = score_mod.ckpt_plain(*args, k=k, band_rows=H, n_ckpt=top)
+    defined = score_mod.ckpt_cells(tla, tlb, k, H, top, Cp)
+    if not (torch.equal(adj_k, adj_p) and torch.equal(ck_k[defined], ck_p[defined])):
+        raise AssertionError(f"long case {name}: pass 1 differs from the plain version")
+    err = float((ck_k[defined] - ck_p[defined]).abs().max())
+    steps = int((la + lb).max())
+    st_k = torch.empty((4, B), dtype=torch.int32, device=dev)
+    st_p = st_k.clone()
+    ops_k = torch.full((steps, B), -1, dtype=torch.int8, device=dev)
+    ops_p = ops_k.clone()
+    n_cells = 0
+    walk_err = 0.0
+    for b in range(top, -1, -1):
+        bp_k = fill_mod.wavefront_fill_band(*args, ck_k[b - 1] if b else None, k=k,
+                                            row0=b * H, band_rows=H, launch=launches[1])
+        bp_p = band_fill_plain(*args, ck_p[b - 1] if b else None, k=k, row0=b * H,
+                               band_rows=H)
+        mask = fill_mod.true_cells(tla, tlb, k, (b + 1) * H, Cp)[:, b * H:]
+        n_cells += int(mask.sum())
+        if not torch.equal(bp_k[mask], bp_p[mask]):
+            raise AssertionError(f"long case {name}: band {b}'s bp differs from the "
+                                 f"plain version ({int((bp_k[mask] != bp_p[mask]).sum())} cells)")
+        start_k, start_p = ((adj, tla, tlb) if b == top else None for adj in (adj_k, adj_p))
+        _, _, score_k = walk_mod.walk_band(bp_k, b * H, st_k, ops_k, k=k, start=start_k)
+        _, _, score_p = walk_band_plain(bp_p, b * H, st_p, ops_p, k=k, start=start_p)
+        walk_err = max(walk_err, walk_difference(st_k, ops_k, st_p, ops_p))
+        if not (torch.equal(st_k, st_p) and torch.equal(ops_k, ops_p)):
+            raise AssertionError(f"long case {name}: the band walk differs from the "
+                                 f"plain version after band {b}")
+        if b == top:
+            if not torch.equal(score_k, score_p):
+                raise AssertionError(f"long case {name}: walk scores differ")
+            score = score_k
+    want_ops, want_score = engine.fused_align_ops(*args, k=k, max_steps=steps)
+    if not (torch.equal(ops_k, want_ops) and torch.equal(score, want_score)):
+        raise AssertionError(f"long case {name}: the long path differs from the "
+                             f"whole-stack fill and walk")
+    shp = "forced" if shape else "the rules'"
+    say("kernels", f"{name}: B={B} NA={NA} NB={C - k} k={k}, {top + 1} bands of {H} "
+        f"rows, {shp} launches: corners and {int(defined.sum())} checkpoint entries, "
+        f"bp on {n_cells} true cells, walk state and {int((ops_k >= 0).sum())} ops "
+        f"bit-equal to plain after every band; equal to the whole-stack route")
+    return err, walk_err
+
+
+def phase_long_kernels(dev):
+    """The long path's kernels on strips (k <= 8) against their plain
+    versions: k = 1, 3 and 8, ragged groups, bands of a few hundred rows, a
+    group spread over several blocks a pair, forced shapes with stripe
+    passes, and strips of 16 over cooperative blocks (the 160,002 nt pair's
+    shape)."""
+    cases = [
+        ("long, ragged 0.8-1.2 knt", 1, 3, (800, 1200), (800, 1200), 300, 31),
+        ("long, wide descendants over blocks", 1, 2, (150, 300), (2500, 3000), 120, 32),
+        ("long, k=3", 3, 3, (450, 600), (450, 600), 150, 33),
+        ("long, k=8", 8, 2, (480, 720), (480, 720), 240, 34),
+        ("long, stripe passes over blocks", 1, 2, (300, 450), (1500, 2000), 150, 35,
+         (4, 2, 3)),
+        ("long, k=3, stripe passes", 3, 2, (270, 360), (900, 1200), 150, 36, (4, 1, 2)),
+        # the instantiation band_shape gives the 160,002 nt pair: strips of 16,
+        # 4 warps a block, several cooperative blocks a pair
+        ("long, W=16 over cooperative blocks", 1, 2, (250, 300), (4200, 5000), 120, 37,
+         (16, 4, 3)),
+    ]
+    errs = [check_long_case(dev, *c) for c in cases]
     return max(e[0] for e in errs), max(e[1] for e in errs)
 
 
@@ -1376,7 +1535,7 @@ def phase_trace(dev, card, main_run):
         if (tmp / "traced.jsonl").read_bytes() != (tmp / "plain.jsonl").read_bytes():
             raise AssertionError("batch --trace-dir wrote other bytes than batch")
         names = {"wavefront_fill": "strip_fill_kernel<",
-                 "traceback_walk": "traceback_walk_kernel("}
+                 "traceback_walk": "traceback_walk_kernel<false>("}
         events, kernels = _traced(f"[{card}] batch --trace-dir, {len(named)} pairs of the "
                                   f"main mix", tmp / "trace", wall, list(names.values()))
         got = {}
@@ -1475,16 +1634,19 @@ def _same_results(what, got, want):
 
 
 def _forced_group_matches_plain(dev, aln):
-    """Two pairs of 6-8 knt through the long route in several segments: the
-    kernels' strings and scores equal the plain versions' on the card."""
-    pairs = make_pairs(2, np.random.default_rng(2), length_mix=[(6000, 0.5), (7998, 0.5)])
+    """Two pairs of 3-4 knt through the long path in bands of 1,000 rows (a
+    budget of one such band): the kernels' strings and scores equal the
+    plain versions' on the card."""
+    pairs = make_pairs(2, np.random.default_rng(2), length_mix=[(2997, 0.5), (3996, 0.5)])
     enc = _encoded(pairs)
+    Cp = fill_mod.row_stride(max(len(b) for b in enc[1]) + int(aln.gap.len))
     run = lambda: longseq.viterbi_align_long_batch(  # noqa: E731
-        *enc, aln.subst_matrix, aln.gap, seg_diagonals=3000, device=dev)
-    got = run()
-    names = ("wavefront_segment", "traceback_walk_segment")
-    with wrappers({n: PLAIN[n] for n in names}):
-        want = run()
+        *enc, aln.subst_matrix, aln.gap, device=dev)
+    names = ("wavefront_score_ckpt", "wavefront_fill_band", "traceback_walk_band")
+    with bp_budget(len(pairs) * Cp * 1000):
+        got = run()
+        with wrappers({n: PLAIN[n] for n in names}):
+            want = run()
     _same_results("forced long group against plain", got, want)
     for (a, b), r in zip(pairs, got):
         if r.seq0.replace("-", "") != a or r.seq1.replace("-", "") != b:
@@ -1505,13 +1667,190 @@ def _long_golden_matches(dev, aln):
     return len(golden["pairs"])
 
 
-def _segment_cell(dev, long_pairs, aln):
-    """The long group's middle segment at its full shape: the segment kernel
-    (with and without backpointers) and the segment walk, each timed against
-    its plain version and held bit-equal to it. Pass 1 runs to the middle
-    segment on the kernel to make the checkpoint."""
+@contextlib.contextmanager
+def bp_budget(n_bytes):
+    """longseq.BP_BUDGET_BYTES set to n_bytes (the long path reads it at the
+    call)."""
+    old = longseq.BP_BUDGET_BYTES
+    longseq.BP_BUDGET_BYTES = n_bytes
+    try:
+        yield
+    finally:
+        longseq.BP_BUDGET_BYTES = old
+
+
+def _timed_plain(dev, fn):
+    """(fn's result, its milliseconds on the host clock to a synchronised
+    end): a plain version's one run is both its check and its time."""
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize(dev)
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def _band_cell(dev, long_pairs, aln):
+    """The long phase's group of long pairs at its full shape, as its rows
+    path cuts it: pass 1 (the checkpointing score kernel), the middle band's
+    fill from its checkpoint and the band walk through it (from the state
+    the kernels' own walk enters it with), each against its plain version
+    on the same inputs, bit for bit, and timed."""
     k = int(aln.gap.len)
     enc_as, enc_bs, _, _ = _encoded(long_pairs)
+    aseq, bseq, la, lb = longseq._pad_group(enc_as, enc_bs)
+    p = params_from_numpy(aln.subst_matrix, aln.gap, dev)
+    a, b, tla, tlb = (torch.from_numpy(x).to(dev) for x in (aseq, bseq, la, lb))
+    args = (a, b, tla, tlb, p.table, p.gap_consts)
+    B, NA = aseq.shape
+    C = bseq.shape[1] + k
+    Cp = fill_mod.row_stride(C)
+    H = longseq.band_rows_for(B, Cp, k)
+    top = (int(la.max()) + k - 1) // H
+    mid = top // 2
+    r0 = mid * H
+
+    def ckpt_run():
+        return score_mod.wavefront_score_ckpt(*args, k=k, band_rows=H, n_ckpt=top)
+
+    adj, ckpt = ckpt_run()
+    (adj_p, ck_p), ckpt_plain_ms = _timed_plain(dev, lambda: score_mod.ckpt_plain(
+        *args, k=k, band_rows=H, n_ckpt=top))
+    defined = score_mod.ckpt_cells(tla, tlb, k, H, top, Cp)
+    if not (torch.equal(adj, adj_p) and torch.equal(ckpt[defined], ck_p[defined])):
+        raise AssertionError("band cell: pass 1 differs from the plain version")
+    ckpt_err = float((ckpt[defined] - ck_p[defined]).abs().max())
+    n_ckpt_entries = int(defined.sum())
+    del ck_p, defined
+
+    # the kernels' walk down to the middle band
+    state = torch.empty((4, B), dtype=torch.int32, device=dev)
+    ops = torch.full((NA + bseq.shape[1], B), -1, dtype=torch.int8, device=dev)
+    for band in range(top, mid, -1):
+        bp = fill_mod.wavefront_fill_band(*args, ckpt[band - 1], k=k, row0=band * H,
+                                          band_rows=H)
+        walk_mod.walk_band(bp, band * H, state, ops, k=k,
+                           start=(adj, tla, tlb) if band == top else None)
+    del bp
+    ck = ckpt[mid - 1] if mid else None
+
+    def band_run():
+        return fill_mod.wavefront_fill_band(*args, ck, k=k, row0=r0, band_rows=H)
+
+    bp_k = band_run()
+    bp_p, band_plain_ms = _timed_plain(dev, lambda: band_fill_plain(
+        *args, ck, k=k, row0=r0, band_rows=H))
+    mask = fill_mod.true_cells(tla, tlb, k, r0 + H, Cp)[:, r0:]
+    band_cells = int(mask.sum())
+    if not torch.equal(bp_k[mask], bp_p[mask]):
+        raise AssertionError(f"band cell: band {mid}'s bp differs from the plain "
+                             f"version ({int((bp_k[mask] != bp_p[mask]).sum())} cells)")
+    del bp_p, mask
+
+    def walk_run(fn):
+        st, o = state.clone(), ops.clone()
+        fn(bp_k, r0, st, o, k=k)
+        return st, o
+
+    st_k, ops_k = walk_run(walk_mod.walk_band)
+    (st_p, ops_p), walk_plain_ms = _timed_plain(dev, lambda: walk_run(walk_band_plain))
+    walk_err = walk_difference(st_k, ops_k, st_p, ops_p)
+    if not (torch.equal(st_k, st_p) and torch.equal(ops_k, ops_p)):
+        raise AssertionError("band cell: the band walk differs from the plain version")
+    steps = int((st_k[3] - state[3]).sum())
+
+    cells = int(((la.astype(np.int64) + k) * (lb.astype(np.int64) + k)).sum())
+    in_bytes = sum(t.numel() * t.element_size() for t in args)
+    band_in = in_bytes + (0 if ck is None else ck.numel() * 4)
+    out = {
+        "shape": f"B={B} NA={NA} NB={C - k} k={k}, {top + 1} bands of {H} rows, "
+                 f"band {mid} (rows {r0}-{r0 + H - 1})",
+        "ckpt_ms": elapsed_ms(ckpt_run, dev, 2), "ckpt_plain_ms": ckpt_plain_ms,
+        "band_ms": elapsed_ms(band_run, dev, 2), "band_plain_ms": band_plain_ms,
+        "walk_ms": elapsed_ms(lambda: walk_run(walk_mod.walk_band), dev, 5),
+        "walk_plain_ms": walk_plain_ms,
+        "ckpt_err": ckpt_err, "band_err": 0.0, "walk_err": walk_err,
+        "steps": steps, "band_cells": band_cells, "cells": cells,
+        # pass 1 reads the inputs once, writes the corners and the checkpoint
+        # entries; every true cell once without backpointers
+        "ckpt_bound": bound(in_bytes + 12 * B + 4 * n_ckpt_entries, cells * CELL_OPS),
+        # a band reads the inputs and its checkpoint, writes 1 B a true cell
+        "band_bound": bound(band_in + band_cells, band_cells * CELL_OPS_BP),
+        # the walk reads 1 B a step and its state, writes 1 B a step and its state
+        "walk_bound": bound(2 * steps + 2 * 16 * B, 0),
+    }
+    say("long", f"band cell {out['shape']}: pass 1 {out['ckpt_ms']:.2f} ms (plain "
+        f"{ckpt_plain_ms:.0f} ms), {n_ckpt_entries} checkpoint entries and the corners "
+        f"bit-equal; the band with bp {out['band_ms']:.2f} ms (plain {band_plain_ms:.0f} "
+        f"ms), {band_cells} true cells bit-equal; the band walk of {steps} steps "
+        f"{out['walk_ms']:.3f} ms (plain {walk_plain_ms:.0f} ms), state and ops equal")
+    return out
+
+
+def _sweep_run(dev):
+    """Gap length K_SWEEP (above the strip body's MAX_K): a batch of the main
+    mix, its pairs cut to multiples of 3k, and SWEEP_LONG long pairs whose
+    stacks of diagonals pass the default budget, through
+    viterbi_align_batch at the default routing, counters reset just before
+    and read just after: the whole-matrix pairs take the sweep with bp and
+    the segment walk, the long ones the segments of diagonals (K5 without
+    and with bp, the segment walk); nothing of the strips launches. Every
+    alignment ungaps to its inputs and equals the run with every pair on
+    the whole-matrix sweep (a budget none passes). Then the long group's
+    middle segment at its full shape against the plain versions
+    (_segment_cell)."""
+    aln = alignment_params(gap_len=K_SWEEP)
+    k = K_SWEEP
+    n_mix, n_long = SWEEP_PAIRS
+    cut = lambda s: s[: len(s) // (3 * k) * (3 * k)]  # noqa: E731
+    mix = [(cut(a), cut(b)) for a, b in
+           make_pairs(n_mix, np.random.default_rng(19), length_mix=LENGTH_MIX[:3])]
+    longs = [(cut(a), cut(b)) for a, b in
+             make_pairs(n_long, np.random.default_rng(20), length_mix=SWEEP_LONG_MIX)]
+    pairs = mix + longs
+    enc = _encoded(pairs)
+    routed = [longseq.is_long_pair(len(x), len(y), k) for x, y in zip(enc[0], enc[1])]
+    if routed != [False] * n_mix + [True] * n_long:
+        raise AssertionError(f"k={k}: the default budget did not route exactly the "
+                             f"{n_long} long pairs")
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with KernelTimer(dev) as timer:
+        got = engine.viterbi_align_batch(*enc, aln.subst_matrix, aln.gap, device=dev)
+    timer.wall = time.perf_counter() - t0
+    launches = launch_counts()
+    with bp_budget(WHOLE_SWEEP_BUDGET):
+        want = engine.viterbi_align_batch(*enc, aln.subst_matrix, aln.gap, device=dev)
+    _same_results(f"k={k}: the long route against the whole-matrix sweep", got, want)
+    del want
+    _check_rows([("a", a, "b", b) for a, b in pairs],
+                [{"alignment": {"a": r.seq0, "b": r.seq1}, "score": r.score} for r in got])
+    strips = ("wavefront_fill", "traceback_walk", "wavefront_score_ckpt",
+              "wavefront_fill_band", "traceback_walk_band")
+    if timer.count("segment_pass1") == 0 or dev.type == "cuda" and (
+            min(launches["wavefront_segment"], launches["traceback_walk_segment"]) == 0
+            or any(launches[n] for n in strips)):
+        raise AssertionError(f"k={k}: the sweep and the segment walk did not carry "
+                             f"the batch alone: {launches}")
+    cell = _segment_cell(dev, longs, aln)
+    say("long", f"k={k}: {n_mix} pairs and {n_long} long ones of "
+        f"{', '.join(f'{len(a)}x{len(b)}' for a, b in longs)} nt (by the default "
+        f"budget) through viterbi_align_batch in {timer.wall:.2f} s; launches "
+        f"{dict((n, launches[n]) for n in ('wavefront_segment', 'traceback_walk_segment'))}, "
+        f"K5 {timer.count('segment_pass1')} without bp and {timer.count('segment_bp')} "
+        f"with, none of the strips; equal to the whole-matrix sweep; all ungap to "
+        f"their inputs")
+    return {"launches": launches, "cell": cell}
+
+
+def _segment_cell(dev, pairs, aln):
+    """A long group's segment at its full shape: the segment kernel (with
+    and without backpointers) and the segment walk, each timed against its
+    plain version and held bit-equal to it. Pass 1 runs to the middle
+    segment on the kernel to make the checkpoint; the walk enters the
+    segment from the corners when it is the top one, else at its top near
+    the main diagonal."""
+    k = int(aln.gap.len)
+    enc_as, enc_bs, _, _ = _encoded(pairs)
     aseq, bseq, la, lb = longseq._pad_group(enc_as, enc_bs)
     p = params_from_numpy(aln.subst_matrix, aln.gap, dev)
     a, b, tla, tlb = (torch.from_numpy(x).to(dev) for x in (aseq, bseq, la, lb))
@@ -1521,18 +1860,21 @@ def _segment_cell(dev, long_pairs, aln):
     C = NB + k
     Dtot = NA + NB + 2 * k - 1
     T = min(Dtot, longseq.seg_diagonals_for(B, C))
-    mid = (-(-Dtot // T)) // 2
+    n_seg = -(-Dtot // T)
+    mid = n_seg // 2
     d0 = mid * T
     carry = seg_mod.empty_carry(B, C, k, dev)
     for s in range(mid):
         _, _, carry = seg_mod.wavefront_segment(*args, carry, s * T, k=k,
                                                 n_steps=T, want_bp=False)
     launch = case_launch(dev, "segment cell", seg_mod.sweep_shape, B, C, k,
-                         "bands", table_len=p.table.numel())
+                         seg_mod.sweep_launch(B, C, k, *seg_mod.sweep_shape(B, C, dev),
+                                              p.table.numel()).route,
+                         table_len=p.table.numel())
     kw = dict(k=k, n_steps=T, launch=launch)
-    _, bp_k, out_k = seg_mod.wavefront_segment(*args, carry, d0, want_bp=True, **kw)
-    _, bp_p, out_p = seg_mod.segment_plain(*args, carry, d0, k=k, n_steps=T,
-                                           want_bp=True)
+    adj, bp_k, out_k = seg_mod.wavefront_segment(*args, carry, d0, want_bp=True, **kw)
+    (_, bp_p, out_p), segment_plain_ms = _timed_plain(dev, lambda: seg_mod.segment_plain(
+        *args, carry, d0, k=k, n_steps=T, want_bp=True))
     mask = _rect_cells(tla, tlb, k, d0, T, C, dev, body=True)
     ring_mask = _rect_cells(tla, tlb, k, d0 + T - max(k, 2), max(k, 2), C, dev).flip(1)
     rk, rp = (o[0].permute(2, 0, 1, 3) for o in (out_k, out_p))
@@ -1543,48 +1885,42 @@ def _segment_cell(dev, long_pairs, aln):
     seg_err = float((rk[m4] - rp[m4]).abs().max())
     del bp_p, mask, m4
 
-    # a walk entering the segment at its top, near the main diagonal
-    d_top = d0 + T - 1
-    j0 = torch.minimum(torch.full_like(tlb, d_top // 2), tlb + (k - 1))
-    entry = torch.stack([d_top - j0, j0, torch.zeros_like(j0), torch.zeros_like(j0)])
-    ops_k = torch.full((T, B), -1, dtype=torch.int8, device=dev)
-    ops_p = ops_k.clone()
-    st_k, st_p = entry.clone(), entry.clone()
-    walk_mod.walk_segment(bp_k, d0, st_k, ops_k, k=k)
-    walk_segment_plain(bp_k, d0, st_p, ops_p, k=k)
+    if mid == n_seg - 1:  # the top segment: the walk starts at the corners
+        entry = torch.zeros((4, B), dtype=torch.int32, device=dev)
+        start = (adj, tla, tlb)
+    else:  # a walk entering the segment at its top, near the main diagonal
+        d_top = d0 + T - 1
+        j0 = torch.minimum(torch.full_like(tlb, d_top // 2), tlb + (k - 1))
+        entry = torch.stack([d_top - j0, j0, torch.zeros_like(j0), torch.zeros_like(j0)])
+        start = None
+
+    def walk_run(fn):
+        st = entry.clone()
+        o = torch.full((NA + NB, B), -1, dtype=torch.int8, device=dev)
+        fn(bp_k, d0, st, o, k=k, start=start)
+        return st, o
+
+    st_k, ops_k = walk_run(walk_mod.walk_segment)
+    (st_p, ops_p), walk_plain_ms = _timed_plain(dev, lambda: walk_run(walk_segment_plain))
     walk_err = walk_difference(st_k, ops_k, st_p, ops_p)
     if not (torch.equal(st_k, st_p) and torch.equal(ops_k, ops_p)):
         raise AssertionError("segment cell: walk differs from the plain version")
     steps = int((ops_k >= 0).sum())
 
-    def walk_again(fn):
-        def run():
-            fn(bp_k, d0, entry.clone(), ops_k, k=k)
-        return run
-
-    # the score kernel over the whole group on the strip route, the band
-    # route and at the barrier, in turns: equal, and timed
-    score_ms = score_routes(dev, "segment cell", args, k, barrier=True)
-
     cells = segment_cells(la, lb, k, d0, T)
     carry_bytes = sum(t.numel() * 4 for t in carry)
     in_bytes = sum(t.numel() * t.element_size() for t in args) + carry_bytes
     out = {
-        "shape": f"B={B} NA={NA} NB={NB} k={k} d0={d0} T={T}, "
-                 f"{launch.blocks} bands of {launch.plan.width} x "
-                 f"{launch.threads} threads", "cells": cells,
-        "score_group_ms": score_ms,
-        "score_group_bound": bound(sum(t.numel() * t.element_size() for t in args)
-                                   + 12 * B, segment_cells(la, lb, k, 0, Dtot) * CELL_OPS),
-        "steps": steps, "err": seg_err, "walk_err": walk_err,
+        "shape": f"B={B} NA={NA} NB={NB} k={k} d0={d0} T={T} ({n_seg} segments), "
+                 f"route {launch.route}, {launch.blocks} x {launch.threads} threads",
+        "cells": cells, "steps": steps, "err": seg_err, "walk_err": walk_err,
         "segment_bp_ms": elapsed_ms(lambda: seg_mod.wavefront_segment(
             *args, carry, d0, want_bp=True, want_carry=False, **kw), dev, 2),
         "segment_pass1_ms": elapsed_ms(lambda: seg_mod.wavefront_segment(
             *args, carry, d0, want_bp=False, **kw), dev, 2),
-        "segment_plain_ms": elapsed_ms(lambda: seg_mod.segment_plain(
-            *args, carry, d0, k=k, n_steps=T, want_bp=True), dev, 1),
-        "walk_ms": elapsed_ms(walk_again(walk_mod.walk_segment), dev, 5),
-        "walk_plain_ms": elapsed_ms(walk_again(walk_segment_plain), dev, 1),
+        "segment_plain_ms": segment_plain_ms,
+        "walk_ms": elapsed_ms(lambda: walk_run(walk_mod.walk_segment), dev, 5),
+        "walk_plain_ms": walk_plain_ms,
         # with backpointers: inputs and carry in, 1 B a cell and adj out
         "segment_bound": bound(in_bytes + cells + 12 * B, cells * CELL_OPS_BP),
         # the walk reads 1 B a step and its state, writes 1 B a step and its state
@@ -1592,10 +1928,8 @@ def _segment_cell(dev, long_pairs, aln):
     }
     say("long", f"segment cell {out['shape']}: {cells} cells, segment kernel "
         f"{out['segment_bp_ms']:.1f} ms with bp, {out['segment_pass1_ms']:.1f} ms "
-        f"without, plain {out['segment_plain_ms']:.1f} ms; walk of {steps} steps "
-        f"{out['walk_ms']:.3f} ms, plain {out['walk_plain_ms']:.1f} ms; all "
-        f"bit-equal to plain; the score kernel over the whole group, in turns: "
-        f"{score_line(score_ms)}, equal")
+        f"without, plain {segment_plain_ms:.0f} ms; walk of {steps} steps "
+        f"{out['walk_ms']:.3f} ms, plain {walk_plain_ms:.0f} ms; all bit-equal to plain")
     return out
 
 
@@ -1649,83 +1983,129 @@ def bound(n_bytes, n_ops):
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
+def _long_group_scores(dev, long_pairs, aln):
+    """The score kernel over the four long pairs' group whole, on the strip
+    route, the band route and at the barrier: equal, timed in turns."""
+    k = int(aln.gap.len)
+    enc_as, enc_bs, _, _ = _encoded(long_pairs)
+    aseq, bseq, la, lb = longseq._pad_group(enc_as, enc_bs)
+    p = params_from_numpy(aln.subst_matrix, aln.gap, dev)
+    args = (*(torch.from_numpy(x).to(dev) for x in (aseq, bseq, la, lb)), p.table,
+            p.gap_consts)
+    cells = int(((la.astype(np.int64) + k) * (lb.astype(np.int64) + k)).sum())
+    in_bytes = sum(t.numel() * t.element_size() for t in args)
+    times = score_routes(dev, "long group", args, k, barrier=True)
+    say("long", f"the score kernel over the {N_LONG}-pair group whole, in turns: "
+        f"{score_line(times)}; equal")
+    return times, bound(in_bytes + 12 * len(long_pairs), cells * CELL_OPS)
+
+
 def phase_long(dev, mix_named):
     aln = alignment_params()
     t0 = time.perf_counter()
-    long_pairs = make_pairs(N_LONG, np.random.default_rng(1), length_mix=LONG_MIX)
-    named = list(mix_named[:N_LONG_PHASE_MIX])
-    first_long = len(named)
-    named += [(f"anc{first_long + i}", a, f"des{first_long + i}", b)
-              for i, (a, b) in enumerate(long_pairs)]
     k = int(aln.gap.len)
-    routed = [longseq.is_long_pair(len(a), len(b), k) for _, a, _, b in named]
-    if routed != [False] * first_long + [True] * N_LONG:
-        raise AssertionError("the default thresholds did not route exactly the "
-                             f"{N_LONG} long pairs to the segmented path")
-    for a, b in long_pairs:
+    mix = list(mix_named[:N_LONG_PHASE_MIX])
+    first_long = len(mix)
+
+    def with_pairs(pairs):
+        return mix + [(f"anc{first_long + i}", a, f"des{first_long + i}", b)
+                      for i, (a, b) in enumerate(pairs)]
+
+    long_pairs = make_pairs(N_LONG, np.random.default_rng(1), length_mix=LONG_MIX)
+    rows_pairs = make_pairs(len(ROWS_MIX), np.random.default_rng(2), length_mix=ROWS_MIX)
+    named, named_rows = with_pairs(long_pairs), with_pairs(rows_pairs)
+    if any(longseq.is_long_pair(len(a), len(b), k) for _, a, _, b in named + named_rows):
+        raise AssertionError("a pair's stack of rows passes the default budget: the "
+                             f"{N_LONG} long pairs should fit the fill")
+    with bp_budget(LONG_PHASE_BUDGET):
+        routed = [longseq.is_long_pair(len(a), len(b), k) for _, a, _, b in named_rows]
+    if routed != [False] * first_long + [True] * len(rows_pairs):
+        raise AssertionError(f"a budget of {LONG_PHASE_BUDGET} bytes did not route "
+                             f"exactly the {len(rows_pairs)} pairs to the long path")
+    for a, b in long_pairs + rows_pairs:
         d = SeqData(names=["a", "b"], seqs=[a, b])
         utils.trim_end_stops(d)
-        if any(d.stops):  # the engine-level comparison below takes none
+        if any(d.stops):  # the engine-level comparisons below take none
             raise AssertionError("a long pair ends in a stop codon")
     say("long", f"made {N_LONG} pairs of "
-        f"{', '.join(f'{len(a)}x{len(b)}' for a, b in long_pairs)} nt in "
-        f"{time.perf_counter() - t0:.1f} s")
+        f"{', '.join(f'{len(a)}x{len(b)}' for a, b in long_pairs)} nt and "
+        f"{len(rows_pairs)} of {', '.join(f'{len(a)}x{len(b)}' for a, b in rows_pairs)} "
+        f"nt in {time.perf_counter() - t0:.1f} s")
+    on_card = dev.type == "cuda"  # the plain versions count no launch
 
-    reset_launch_counts()
-    torch.cuda.reset_peak_memory_stats(dev)
-    t0 = time.perf_counter()
-    with KernelTimer(dev) as timer:
-        n, rows = _run_batch(named, dev)
-    timer.wall = time.perf_counter() - t0
-    peak = torch.cuda.max_memory_allocated(dev)
-    t0 = time.perf_counter()
-    scores = score_kernel_scores([(a, b) for _, a, _, b in named], aln, dev)
-    score_wall = time.perf_counter() - t0
-    launches = {name: count for name, count in launch_counts().items()
-                if name in ("wavefront_segment", "wavefront_score",
-                            "traceback_walk_segment", "wavefront_fill",
-                            "traceback_walk")}
+    def on_the_fill(pairs):
+        """batch_align at the default budget: every pair on the fill."""
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        n, rows = _run_batch(pairs, dev)
+        wall = time.perf_counter() - t0
+        counts = launch_counts()
+        if on_card and (min(counts["wavefront_fill"], counts["traceback_walk"]) == 0
+                        or any(counts[n] for n in LONG_KERNELS + SEGMENT_KERNELS)):
+            raise AssertionError(f"the default budget did not keep every pair on the "
+                                 f"fill: {counts}")
+        if n != len(pairs):
+            raise AssertionError(f"aligned {n} of {len(pairs)} pairs")
+        _check_rows(pairs, rows)
+        return rows, wall
 
-    if n != len(named) or len(rows) != len(named):
-        raise AssertionError(f"aligned {n} of {len(named)} pairs")
-    _check_rows(named, rows)
-    if dev.type == "cuda" and min(launches.values()) == 0:
-        raise AssertionError(f"a kernel of the long path never launched: {launches}")
-    for i, (row, sc) in enumerate(zip(rows, scores)):
-        if np.float32(row["score"]) != sc:
-            raise AssertionError(f"pair {i}: alignment score {row['score']} != "
-                                 f"score kernel's {sc}")
-    t0 = time.perf_counter()
-    full = engine.viterbi_align_batch(*_encoded(long_pairs), aln.subst_matrix,
-                                      aln.gap, long_slots=10**9, device=dev)
-    full_wall = time.perf_counter() - t0
-    for i, r in enumerate(full):
-        row = rows[first_long + i]
-        got = (row["alignment"][f"anc{first_long + i}"],
-               row["alignment"][f"des{first_long + i}"], np.float32(row["score"]))
-        if got != (r.seq0, r.seq1, np.float32(r.score)):
-            raise AssertionError(f"long pair {i}: segmented path differs from "
-                                 f"the full-backpointer route")
+    def scores_equal(pairs, rows):
+        t0 = time.perf_counter()
+        scores = score_kernel_scores([(a, b) for _, a, _, b in pairs], aln, dev)
+        for i, (row, sc) in enumerate(zip(rows, scores)):
+            if np.float32(row["score"]) != sc:
+                raise AssertionError(f"pair {i}: alignment score {row['score']} != "
+                                     f"score kernel's {sc}")
+        return time.perf_counter() - t0
+
+    # by default the four 29-32 knt pairs take the fill, their stacks of rows
+    # within 1 GiB, and so do the 6-8 knt pairs
+    long_rows, fill_wall = on_the_fill(named)
+    scores_equal(named, long_rows)
+    fill_rows, _ = on_the_fill(named_rows)
+    # a budget the 6-8 knt pairs' stacks pass drives them through the rows path
+    with bp_budget(LONG_PHASE_BUDGET):
+        reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        with KernelTimer(dev) as timer:
+            n, rows = _run_batch(named_rows, dev)
+        timer.wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated(dev)
+        score_wall = scores_equal(named_rows, rows)
+        launches = launch_counts()
+        if n != len(named_rows) or len(rows) != len(named_rows):
+            raise AssertionError(f"aligned {n} of {len(named_rows)} pairs")
+        _check_rows(named_rows, rows)
+        if on_card and min(launches[n] for n in ("wavefront_fill", "traceback_walk",
+                                                 "wavefront_score", *LONG_KERNELS)) == 0:
+            raise AssertionError(f"a kernel of the long path never launched: {launches}")
+        if any(launches[n] for n in SEGMENT_KERNELS):
+            raise AssertionError(f"the segment kernels launched for a k = {k} long "
+                                 f"pair: {launches}")
+        if rows != fill_rows:
+            raise AssertionError("the rows path's alignments differ from the fill's")
+        H = longseq.band_rows_for(len(rows_pairs), fill_mod.row_stride(
+            max(len(b) for b in _encoded(rows_pairs)[1]) + k), k)
+        cell = _band_cell(dev, rows_pairs, aln)
+    group_scores = _long_group_scores(dev, long_pairs, aln)
     forced = _forced_group_matches_plain(dev, aln)
     n_golden = _long_golden_matches(dev, aln)
-
-    group = longseq._pad_group(*_encoded(long_pairs)[:2])
-    C = group[1].shape[1] + k
-    Dtot = group[0].shape[1] + group[1].shape[1] + 2 * k - 1
-    T = min(Dtot, longseq.seg_diagonals_for(N_LONG, C))
-    say("long", f"batch_align {n} pairs ({N_LONG} long) in {timer.wall:.2f} s wall; "
-        f"viterbi_scores_batch {score_wall:.2f} s; launches {launches}; all ungap "
-        f"to their inputs; every score equals the score kernel's; the long pairs "
-        f"equal the full-bp route ({full_wall:.2f} s); forced group of "
-        f"{forced} nt equals plain; {n_golden} long golden pairs equal the JAX "
-        f"reference")
+    sweep = _sweep_run(dev)
+    say("long", f"batch_align {N_LONG_PHASE_MIX} pairs and the {N_LONG} long ones at "
+        f"the default budget: all on the fill, {fill_wall:.2f} s wall; with "
+        f"{len(rows_pairs)} pairs of 6-8 knt in their place at a budget of "
+        f"{LONG_PHASE_BUDGET} bytes: {timer.wall:.2f} s wall, viterbi_scores_batch "
+        f"{score_wall:.2f} s; launches "
+        f"{ {n: launches[n] for n in ('wavefront_fill', 'traceback_walk', 'wavefront_score', *LONG_KERNELS, *SEGMENT_KERNELS)} }; "
+        f"all ungap to their inputs; every score equals the score kernel's; the rows "
+        f"path's rows equal the fill's byte for byte; forced group of {forced} nt "
+        f"equals plain; {n_golden} long golden pairs equal the JAX reference")
     return {"timer": timer, "launches": launches, "peak": peak, "n": n,
-            "score_wall": score_wall, "full_wall": full_wall,
-            "true_cells": sum(len(a) * len(b) for a, b in long_pairs),
-            "seg_diagonals": T, "segments": timer.count("segment_bp"),
-            "pairs": [(a, b) for _, a, _, b in named],
-            "group": f"B={N_LONG} C={C} Dtot={Dtot}",
-            "cell": _segment_cell(dev, long_pairs, aln)}
+            "score_wall": score_wall, "fill_wall": fill_wall,
+            "true_cells": sum(len(a) * len(b) for a, b in rows_pairs),
+            "band_rows": H, "pairs": [(a, b) for _, a, _, b in named],
+            "cell": cell, "sweep": sweep, "group_scores": group_scores}
 
 
 def score_cell(dev):
@@ -1775,25 +2155,26 @@ def phase_numbers(card, main_shape, main, long, score, sample, triplet, errs):
     say("numbers", f"{tag} peak device memory of the warm run "
         f"{main['peak'] / 2**20:.1f} MiB (torch.cuda.max_memory_allocated)")
     lt = long["timer"]
-    p1, p2, wk = (lt.seconds(n) for n in
-                  ("segment_pass1", "segment_bp", "traceback_walk_segment"))
-    say("numbers", f"{tag} long phase: {long['n']} pairs in {lt.wall:.2f} s wall; the "
-        f"{N_LONG}-pair group {long['group']} in {long['segments']} segments of "
-        f"{long['seg_diagonals']} diagonals: pass 1 {p1 * 1e3:.1f} ms over "
-        f"{lt.count('segment_pass1')} launches, recompute with bp {p2 * 1e3:.1f} ms "
-        f"over {lt.count('segment_bp')}, segment walk {wk * 1e3:.1f} ms over "
-        f"{lt.count('traceback_walk_segment')} (CUDA events); "
+    p1, p2, wk = (lt.seconds(n) for n in LONG_KERNELS)
+    say("numbers", f"{tag} long phase: {long['n']} pairs in {lt.wall:.2f} s wall (with "
+        f"the {N_LONG} 29-32 knt pairs on the fill at the default budget: "
+        f"{long['fill_wall']:.2f} s); the two 6-8 knt pairs in "
+        f"{lt.count('wavefront_fill_band')} bands of "
+        f"{long['band_rows']} rows: pass 1 {p1 * 1e3:.1f} ms over "
+        f"{lt.count('wavefront_score_ckpt')} launches, the bands with bp "
+        f"{p2 * 1e3:.1f} ms over {lt.count('wavefront_fill_band')}, band walk "
+        f"{wk * 1e3:.1f} ms over {lt.count('traceback_walk_band')} (CUDA events); "
         f"{2 * long['true_cells'] / (p1 + p2) / 1e9:.2f} Gcells/s over "
         f"{long['true_cells']} true cells counted once a sweep; peak device memory "
         f"{long['peak'] / 2**20:.1f} MiB")
     cell = long["cell"]
-    sg = cell["score_group_ms"]
+    sweep = long["sweep"]
+    seg = sweep["cell"]
+    sg, sg_bound = long["group_scores"]
     say("numbers", f"{tag} wavefront_score over the {N_LONG}-pair group whole, in "
-        f"turns: {score_line(sg)}; bound {cell['score_group_bound'][0]:.3g} ms by "
-        f"{cell['score_group_bound'][1]}")
-    say("numbers", f"{tag} long phase: the same four pairs through the full-bp fill + "
-        f"walk {long['full_wall']:.2f} s wall, viterbi_scores_batch over the "
-        f"phase's {long['n']} pairs {long['score_wall']:.2f} s wall in "
+        f"turns: {score_line(sg)}; bound {sg_bound[0]:.3g} ms by {sg_bound[1]}")
+    say("numbers", f"{tag} long phase: viterbi_scores_batch over the phase's "
+        f"{long['n']} pairs {long['score_wall']:.2f} s wall in "
         f"{long['launches']['wavefront_score']} launches")
 
     def entry(name, launches, err, ms, plain_ms, bnd):
@@ -1808,14 +2189,23 @@ def phase_numbers(card, main_shape, main, long, score, sample, triplet, errs):
         entry("traceback_walk", main["launches"]["traceback_walk"], errs["walk"],
               main_shape["walk_ms"], main_shape["walk_plain_ms"],
               main_shape["walk_bound"]),
-        entry("wavefront_segment", long["launches"]["wavefront_segment"],
-              max(errs["segment"], cell["err"]), cell["segment_bp_ms"],
-              cell["segment_plain_ms"], cell["segment_bound"]),
+        entry("wavefront_segment", sweep["launches"]["wavefront_segment"],
+              max(errs["segment"], seg["err"]), seg["segment_bp_ms"],
+              seg["segment_plain_ms"], seg["segment_bound"]),
         entry("wavefront_score", long["launches"]["wavefront_score"],
               max(errs["segment"], score["err"]), score["ms"], score["plain_ms"],
               score["bound"]),
-        entry("traceback_walk_segment", long["launches"]["traceback_walk_segment"],
-              max(errs["segment_walk"], cell["walk_err"]), cell["walk_ms"],
+        entry("traceback_walk_segment", sweep["launches"]["traceback_walk_segment"],
+              max(errs["segment_walk"], seg["walk_err"]), seg["walk_ms"],
+              seg["walk_plain_ms"], seg["walk_bound"]),
+        entry("wavefront_score_ckpt", long["launches"]["wavefront_score_ckpt"],
+              max(errs["long"], cell["ckpt_err"]), cell["ckpt_ms"],
+              cell["ckpt_plain_ms"], cell["ckpt_bound"]),
+        entry("wavefront_fill_band", long["launches"]["wavefront_fill_band"],
+              cell["band_err"], cell["band_ms"], cell["band_plain_ms"],
+              cell["band_bound"]),
+        entry("traceback_walk_band", long["launches"]["traceback_walk_band"],
+              max(errs["long_walk"], cell["walk_err"]), cell["walk_ms"],
               cell["walk_plain_ms"], cell["walk_bound"]),
         entry("wavefront_forward", sample["launches"]["wavefront_forward"],
               max(errs["forward"], sample["forward_err"]), sample["forward_ms"],
@@ -2090,15 +2480,79 @@ def phase_msa(dev, card):
         f"equals the JAX reference's output")
 
 
+def path_score(enc_a, enc_b, s0, s1, table, gap_consts):
+    """The f32 value the Viterbi fill (k = 1) gives the corner at the end of
+    one alignment's own path: its columns replayed from the origin, each cell
+    the fill's candidate for the state the path comes from, in the fill's
+    order of operations (align/wavefront.py _diagonal_step: the margins of
+    row and column 0 by margin_values' one rounding, the candidates by
+    separate f32 adds), then the corner's terminal adjustment. On the path
+    that the walk reads off the backpointers this is the reported score bit
+    for bit: a backpointer compares the same partial sums the value's max
+    does (before the emission, which rounds them monotonically), so any
+    other path, or a wrong byte that moved it, gives another value or
+    fails."""
+    f32 = np.float32
+    ng, gs, go, ge = (f32(x) for x in np.asarray(gap_consts, np.float32))
+    zero = f32(ge * f32(0.0))  # gek1 at k = 1
+    ngo = f32(ng + go)
+    tab = np.asarray(table, np.float32).reshape(-1)
+
+    def margin(base, idx):
+        return f32(np.float64(base) + np.float64(ge) * (float(idx) - 1.0))
+
+    if len(s0) != len(s1):
+        raise AssertionError("path_score: rows of unequal length")
+    i = j = 0
+    st, v = 0, f32(0.0)  # 0 M, 1 D, 2 I; the origin's M margin
+    for x, y in zip(s0, s1):
+        if x != "-" and y != "-":
+            i, j = i + 1, j + 1
+            if i > len(enc_a) or j > len(enc_b):
+                raise AssertionError("path_score: the path leaves the matrix")
+            b = int(enc_b[j - 1])
+            sub = tab[int(enc_a[i - 1]) * 15 + b] if b < 15 else f32(0.0)
+            v = (f32(f32(v + ng) + ng), f32(v + gs), f32(f32(v + gs) + ng))[st]
+            v, st = f32(v + sub), 0
+        elif y == "-" and x != "-":
+            i += 1
+            if j == 0:
+                v = margin(ngo, i)
+            else:
+                v = (f32(f32(f32(v + ng) + go) + zero), f32(v + ge),
+                     f32(f32(f32(v + gs) + go) + zero))[st]
+            st = 1
+        elif x == "-" and y != "-":
+            j += 1
+            if i == 0:
+                v = margin(go, j)
+            elif st == 1:
+                raise AssertionError("path_score: an insertion right after a "
+                                     "deletion, which the fill never takes")
+            else:
+                v = f32(f32(f32(v + go) + zero) if st == 0 else f32(v + ge))
+            st = 2
+        else:
+            raise AssertionError("path_score: a column of two gaps")
+    if (i, j) != (len(enc_a), len(enc_b)):
+        raise AssertionError(f"path_score: the path ends at {(i, j)}, not at the "
+                             f"corner {(len(enc_a), len(enc_b))}")
+    return (f32(f32(v + ng) + ng), f32(v + gs), f32(f32(v + gs) + ng))[st]
+
+
 def run_longpair(dev, card, nt):
-    """One synthetic pair of nt nt through the CLI's alignpair on the card."""
+    """One synthetic pair of nt nt through the CLI's alignpair on the card:
+    its stack of rows passes the default budget, so it takes the long path on
+    strips; the counters show the sweep never launched. Its score equals the
+    score kernel's and the sum along its own path (path_score)."""
     (a, b), = make_pairs(1, np.random.default_rng(3), length_mix=[(nt, 1.0)])
     aln = alignment_params()
     k = int(aln.gap.len)
-    C = len(b) + k
-    Dtot = len(a) + len(b) + 2 * k - 1
-    T = min(Dtot, longseq.seg_diagonals_for(1, C))
+    if not longseq.is_long_pair(len(a), len(b), k):
+        raise AssertionError(f"a {len(a)} x {len(b)} nt pair fits the budget")
+    H = longseq.band_rows_for(1, fill_mod.row_stride(len(b) + k), k)
     torch.cuda.reset_peak_memory_stats(dev)
+    reset_launch_counts()
     with tempfile.TemporaryDirectory() as tmp:
         src = Path(tmp) / "pair.fasta"
         out = Path(tmp) / "out.json"
@@ -2107,19 +2561,39 @@ def run_longpair(dev, card, nt):
         with KernelTimer(dev) as timer:
             rc = cli.main(["alignpair", str(src), "-o", str(out)])
         wall = time.perf_counter() - t0
+        counts = launch_counts()
         row = json.loads(out.read_text()) if rc == 0 else None
     peak = torch.cuda.max_memory_allocated(dev)
     if rc != 0:
         raise AssertionError(f"alignpair failed: rc={rc}")
     _check_rows([("anc", a, "des", b)], [row])
+    if min(counts[n] for n in LONG_KERNELS) == 0 or any(counts[n] for n in SEGMENT_KERNELS):
+        raise AssertionError(f"the {len(a)} nt pair did not take the long path on "
+                             f"strips alone: {counts}")
     t0 = time.perf_counter()
     score, = score_kernel_scores([(a, b)], aln, dev)
     score_wall = time.perf_counter() - t0
     if np.float32(row["score"]) != score:
         raise AssertionError(f"alignpair's score {row['score']} is not the "
                              f"score kernel's {score}")
-    p1, p2, wk = (timer.seconds(n) for n in
-                  ("segment_pass1", "segment_bp", "traceback_walk_segment"))
+    # the alignment's own path, summed as the fill sums it, gives that score:
+    # a band that sent the walk astray would not
+    t0 = time.perf_counter()
+    d, = _trimmed([(a, b)])
+    n_stop = 3 if any(d.stops) else 0  # the columns restore_end_stops appends
+    path = [row["alignment"][n] for n in ("anc", "des")]
+    path = [x[:len(x) - n_stop] for x in path]
+    if [x.replace("-", "") for x in path] != d.seqs:
+        raise AssertionError("the alignment's path does not ungap to the trimmed pair")
+    p_cpu = params_from_numpy(aln.subst_matrix, aln.gap, "cpu")
+    d.score = float(path_score(*encode_marginal(*d.seqs), *path, p_cpu.table,
+                               p_cpu.gap_consts))
+    utils.restore_end_stops(d, aln.gap)
+    if np.float32(d.score) != np.float32(row["score"]):
+        raise AssertionError(f"the alignment's own path sums to {d.score}, not to "
+                             f"its reported score {row['score']}")
+    path_wall = time.perf_counter() - t0
+    p1, p2, wk = (timer.seconds(n) for n in LONG_KERNELS)
     cells = len(a) * len(b)
     enc_as, enc_bs, _, _ = _encoded([(a, b)])
     padded = engine._pad_batch(enc_as, enc_bs, 96)
@@ -2129,18 +2603,20 @@ def run_longpair(dev, card, nt):
     say("longpair", f"[{card}] the score kernel over the {len(a)} nt pair, in turns: "
         f"{score_line(score_ms)}; equal")
     say("longpair", f"[{card}] {len(a)} x {len(b)} nt through alignpair: {wall:.2f} s "
-        f"wall, {timer.count('segment_bp')} segments of {T} diagonals, pass 1 "
-        f"{p1:.2f} s, recompute with bp {p2:.2f} s, walk {wk * 1e3:.1f} ms "
-        f"(CUDA events), {2 * cells / (p1 + p2) / 1e9:.2f} Gcells/s over {cells} "
-        f"true cells counted once a sweep, {Dtot / p1 / 1e3:.1f} k diagonals/s in "
-        f"pass 1; peak device memory {peak / 2**20:.1f} MiB; ungaps to its "
-        f"inputs; score {score} equals the score kernel's ({score_wall:.2f} s wall)")
+        f"wall, {timer.count('wavefront_fill_band')} bands of {H} rows, pass 1 "
+        f"{p1 * 1e3:.1f} ms, the bands with bp {p2 * 1e3:.1f} ms, band walk "
+        f"{wk * 1e3:.1f} ms (CUDA events), {2 * cells / (p1 + p2) / 1e9:.2f} Gcells/s "
+        f"over {cells} true cells counted once a sweep; launches "
+        f"{ {n: counts[n] for n in LONG_KERNELS + SEGMENT_KERNELS} }; peak device "
+        f"memory {peak / 2**20:.1f} MiB; ungaps to its inputs; score {score} equals "
+        f"the score kernel's ({score_wall:.2f} s wall) and the sum along its own path "
+        f"of {len(path[0])} columns ({path_wall:.2f} s on the host)")
 
 def run_lonepair(dev, card, nt=LONE_NT):
     """One pair of nt nt through the CLI's alignpair and through batch_align:
     the fill kernel spread over several blocks and the whole-stack walk, one
     launch each; the alignment equals the long path's for the same pair
-    (the segmented route, held to plain in phase 5)."""
+    (the rows path, held to plain in phases 3 and 5)."""
     aln = alignment_params()
     k = int(aln.gap.len)
     for seed in range(4, 40):
@@ -3070,8 +3546,7 @@ def phase_multi(dev, card, main_run, long_run):
 # --- phase 11: the bench ----------------------------------------------------
 # the kernels the bench's sections launch, every one of which must launch
 BENCH_KERNELS = ("wavefront_fill", "traceback_walk", "wavefront_forward", "sample_walk",
-                 "triplet_rows", "triplet_walk", "wavefront_segment",
-                 "traceback_walk_segment")
+                 "triplet_rows", "triplet_walk", *LONG_KERNELS)
 
 
 def phase_bench(card):
@@ -3119,6 +3594,7 @@ def main() -> int:
     phase("build", phase_build)
     main_shape, fill_err, walk_err = phase("kernels", phase_kernels, dev)
     seg_err, seg_walk_err = phase("segment kernels", phase_segment_kernels, dev)
+    long_err, long_walk_err = phase("long kernels", phase_long_kernels, dev)
     fwd_err, sample_walk_err = phase("sample kernels", phase_sample_kernels, dev)
     main_run = phase("main", phase_main, dev)
     phase("trace", phase_trace, dev, card, main_run)
@@ -3135,7 +3611,8 @@ def main() -> int:
         + f"; {time.perf_counter() - T_START:.1f} s in all")
     phase_numbers(card, main_shape, main_run, long_run, score, sample_run,
                   triplet_run, {"fill": fill_err, "walk": walk_err, "segment": seg_err,
-                   "segment_walk": seg_walk_err, "forward": fwd_err,
+                   "segment_walk": seg_walk_err, "long": long_err,
+                   "long_walk": long_walk_err, "forward": fwd_err,
                    "sample_walk": sample_walk_err})
     bad = sorted(m for m in sys.modules
                  if m.split(".")[0] in ("jax", "jaxlib", "coati_tpu", "bench"))

@@ -32,9 +32,10 @@ draws from one generator, so each section gets bench.py's pairs:
 6. sample-long - the same on one long pair.
 7. triplet   - triplet_wavefront.triplet_align_batch under tri-mg, a batch
                and a batch of longer pairs.
-8. long pair - viterbi_align_batch on one long pair through the segmented
-               path (long_slots=0: the section times that path at every
-               size; at 32,001 nt the default byte budget takes it too).
+8. long pair - viterbi_align_batch on one long pair through the two-pass
+               long path (long_slots=0: the section times that path at
+               every size; at 32,001 nt the default byte budget would let
+               the fill take the pair, whose rows fit it).
 
 Environment knobs, as bench.py's: BENCH_QUICK=1 (small sizes), BENCH_PAIRS,
 BENCH_LADDER (0: no ladder; its pairs are then not drawn, so later sections'
@@ -383,7 +384,7 @@ def run(cfg: Config, device: str = "cuda"):
     if not np.isfinite(lres[0].score):
         raise AssertionError("long pair: the score is not finite")
     long_rate = len(le_a) * len(le_b) / dt_long
-    log(f"long pair: segmented path, {len(le_a)}x{len(le_b)} nt, "
+    log(f"long pair: two-pass long path, {len(le_a)}x{len(le_b)} nt, "
         f"{long_rate / 1e6:.0f} Mcells/s")
     log_launches("long pair")
 

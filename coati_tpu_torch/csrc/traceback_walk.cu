@@ -1,6 +1,7 @@
 // Backward traceback walk over packed backpointers, a warp a pair with the
 // backpointers read through windows in shared memory: over a whole stack in
-// row layout, or segment by segment (diagonal layout) for long pairs.
+// row layout, band by band of rows for long pairs (k <= 8), or segment by
+// segment (diagonal layout) for long pairs above k = 8.
 //
 // Replaces the device walk coati_tpu/align/wavefront.py:271
 // traceback_ops_impl in its while-loop form (:388-417), and the segment
@@ -28,6 +29,15 @@
 // position and fetches it while lane 0 walks on in the current one, which
 // still holds the 2S steps after its own anchor; the fetch has S steps of
 // the walk to arrive in.
+//
+// Band walk (traceback_walk_kernel<true>): the same walk over one band of
+// rows of the long path's pass 2 (csrc/wavefront_fill_long.cu), bp [B, R,
+// Cp] holding rows [r0, r0 + R), with the segment form's state and start
+// (below). A pair walks while its row is in the band; the windows are
+// clipped at the band's first row. A step of k rows may leave the band: the
+// band below is filled before it is walked. This is the segment walk's
+// contract on the fill's row layout, so a long pair at k <= 8 never runs
+// the sweep.
 //
 // Segment walk (traceback_walk_segment_kernel): the same rounds and windows
 // over a segment in diagonal layout, rows being diagonals. Its rows are C
@@ -94,13 +104,17 @@ __device__ __forceinline__ void window_arrived() {
 }
 
 // Shared memory a warp: two windows of (H + 1) rows of wb bytes, and S op
-// codes. kernels/traceback_walk.py window_bytes repeats it.
+// codes. kernels/traceback_walk.py window_bytes repeats it. kBand: the band
+// walk; its first launch is given cM, cD, cI, the later ones null, and
+// state carries each pair's (i, j, st, s) between launches.
+template <bool kBand>
 __global__ void traceback_walk_kernel(
     const uint8_t* __restrict__ bp, const float* __restrict__ cM,
     const float* __restrict__ cD, const float* __restrict__ cI,
     const int32_t* __restrict__ lens_a, const int32_t* __restrict__ lens_b,
-    int8_t* __restrict__ ops, float* __restrict__ score, int B, int R,
-    int Cp, int k, int max_steps, int S) {
+    int8_t* __restrict__ ops, float* __restrict__ score,
+    int32_t* __restrict__ state, int B, int R, int Cp, int k, int max_steps,
+    int S, int band_row0) {
   extern __shared__ __align__(16) uint8_t wsmem[];
   const int H = 2 * k * S;
   const int wb = ((H + 31) + 15) & ~15;  // bytes of a window row
@@ -113,18 +127,32 @@ __global__ void traceback_walk_kernel(
   const int mine = warp * (2 * win_bytes + ((S + 15) & ~15));
   const int staged = mine + 2 * win_bytes;
   const uint8_t* bpp = bp + (size_t)p * R * Cp;
+  const int r0 = kBand ? band_row0 : 0;  // the stack's first row
 
-  const float m = cM[p], d = cD[p], x = cI[p];
-  unsigned st = argmax_mdi(m, d, x);
-  if (lane == 0) score[p] = fmaxf(m, fmaxf(d, x));
-  int i = lens_a[p] + k - 1;
-  int j = lens_b[p] + k - 1;
-  int s = 0;
-  // the walk stops at (k-1, k-1); i, j < 0 only on a malformed bp stack
-  bool done = !(s < max_steps && (i > k - 1 || j > k - 1) && i >= 0 && j >= 0);
+  int i, j, s;
+  unsigned st;
+  if (!kBand || cM != nullptr) {  // start at the corner
+    const float m = cM[p], d = cD[p], x = cI[p];
+    st = argmax_mdi(m, d, x);
+    if (lane == 0) score[p] = fmaxf(m, fmaxf(d, x));
+    i = lens_a[p] + k - 1;
+    j = lens_b[p] + k - 1;
+    s = 0;
+  } else {
+    i = state[p];
+    j = state[B + p];
+    st = (unsigned)state[2 * B + p];
+    s = state[3 * B + p];
+  }
+  // the walk stops at (k-1, k-1), and a band's walk below its first row;
+  // i, j < 0 (or i past the band) only on a malformed bp stack or state
+  auto inside = [&]() {
+    return (i > k - 1 || j > k - 1) && i >= r0 && j >= 0 && (!kBand || i - r0 < R);
+  };
+  bool done = !(s < max_steps && inside());
   Window cur = {0, 0};
   if (!done) {
-    cur = fetch_window(bpp, Cp, i, j, H, wb, wsmem + mine, lane);
+    cur = fetch_window(bpp, Cp, i - r0, j, H, wb, wsmem + mine, lane);
     window_arrived();
   }
   for (int round = 0; !done; ++round) {
@@ -132,25 +160,26 @@ __global__ void traceback_walk_kernel(
     // position while lane 0 walks on in the current one
     Window next = cur;
     if (round > 0)
-      next = fetch_window(bpp, Cp, i, j, H, wb, wsmem + mine + (round & 1) * win_bytes, lane);
+      next = fetch_window(bpp, Cp, i - r0, j, H, wb,
+                          wsmem + mine + (round & 1) * win_bytes, lane);
     const int w = mine + ((round > 0 ? round - 1 : 0) & 1) * win_bytes;
     int n = 0;
     if (lane == 0) {
-      const int org = w - cur.r0 * wb - cur.c0;  // cell (i, j) at wsmem[org + i * wb + j]
+      // cell (i, j) at wsmem[org + (i - r0) * wb + j]
+      const int org = w - cur.r0 * wb - cur.c0;
       const int lim = min(S, max_steps - s);
       for (; n < lim; ++n) {
-        if (!((i > k - 1 || j > k - 1) && i >= 0 && j >= 0)) {
+        if (!inside()) {
           done = true;
           break;
         }
-        const unsigned code = wsmem[org + i * wb + j];
+        const unsigned code = wsmem[org + (i - r0) * wb + j];
         wsmem[staged + n] = (uint8_t)st;
         i -= st == 0 ? 1 : (st == 1 ? k : 0);
         j -= st == 0 ? 1 : (st == 1 ? 0 : k);
         st = (code >> (2 * st)) & 3u;
       }
-      if (!(s + n < max_steps && (i > k - 1 || j > k - 1) && i >= 0 && j >= 0))
-        done = true;
+      if (!(s + n < max_steps && inside())) done = true;
     }
     __syncwarp();
     n = __shfl_sync(0xffffffffu, n, 0);
@@ -169,7 +198,16 @@ __global__ void traceback_walk_kernel(
     }
   }
   asm volatile("cp.async.wait_all;" ::: "memory");
-  for (int q = s + lane; q < max_steps; q += 32) ops[(size_t)q * B + p] = -1;
+  if constexpr (kBand) {  // the caller filled ops with -1
+    if (lane == 0) {
+      state[p] = i;
+      state[B + p] = j;
+      state[2 * B + p] = (int32_t)st;
+      state[3 * B + p] = s;
+    }
+  } else {
+    for (int q = s + lane; q < max_steps; q += 32) ops[(size_t)q * B + p] = -1;
+  }
 }
 
 // One window of a segment: diagonals [t0, ta] x columns [c0, ja] of pair
@@ -338,16 +376,50 @@ extern "C" int coati_traceback_walk(
   const size_t smem = per_warp * warps;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        traceback_walk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        traceback_walk_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  traceback_walk_kernel<<<(B + warps - 1) / warps, 32 * warps, smem,
-                          static_cast<cudaStream_t>(stream)>>>(
+  traceback_walk_kernel<false><<<(B + warps - 1) / warps, 32 * warps, smem,
+                                 static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(bp), static_cast<const float*>(cM),
       static_cast<const float*>(cD), static_cast<const float*>(cI),
       static_cast<const int32_t*>(lens_a), static_cast<const int32_t*>(lens_b),
-      static_cast<int8_t*>(ops), static_cast<float*>(score), B, R, Cp, k,
-      max_steps, S);
+      static_cast<int8_t*>(ops), static_cast<float*>(score), nullptr, B, R, Cp,
+      k, max_steps, S, 0);
+  return (int)cudaGetLastError();
+}
+
+// One band of rows [row0, row0 + R) of the long path, bp [B, R, Cp]. adj
+// ([3, B] terminal-adjusted corners), lens_a, lens_b and score are all given
+// on a walk's first launch and all null on the later ones.
+extern "C" int coati_traceback_walk_band(
+    const void* bp, const void* adj, const void* lens_a, const void* lens_b,
+    void* score, void* state, void* ops, int B, int R, int Cp, int k,
+    int row0, int max_steps, int S, int warps, void* stream) {
+  if (B == 0) return 0;
+  const int H = 2 * k * S;
+  const int wb = ((H + 31) + 15) & ~15;
+  if (S < 1 || warps < 1 || warps > 32 || Cp % 16 != 0 || wb > 32 * 16 ||
+      row0 < 0 || R < 1 || (adj == nullptr) != (score == nullptr) ||
+      (adj != nullptr && (lens_a == nullptr || lens_b == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  const size_t per_warp = 2 * (size_t)(H + 1) * wb + ((S + 15) & ~15);
+  const size_t smem = per_warp * warps;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        traceback_walk_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const float* a = static_cast<const float*>(adj);
+  traceback_walk_kernel<true><<<(B + warps - 1) / warps, 32 * warps, smem,
+                                static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(bp), a, a ? a + B : nullptr,
+      a ? a + 2 * B : nullptr, static_cast<const int32_t*>(lens_a),
+      static_cast<const int32_t*>(lens_b), static_cast<int8_t*>(ops),
+      static_cast<float*>(score), static_cast<int32_t*>(state), B, R, Cp, k,
+      max_steps, S, row0);
   return (int)cudaGetLastError();
 }
 

@@ -53,8 +53,19 @@ SIGNATURES = {
     # aseq bseq lens_a lens_b table gap corners edge gprog, B NA NB k table_len
     # table_shared W warps_per_pair pairs_per_block blocks_per_pair, stream
     "coati_wavefront_fill_score": [_P] * 9 + [_I] * 10 + [_P],
+    # aseq bseq lens_a lens_b table gap corners ckpt edge gprog, B NA NB k Cp
+    # band_rows n_ckpt table_len table_shared W warps_per_pair pairs_per_block
+    # blocks_per_pair, stream
+    "coati_wavefront_fill_ckpt": [_P] * 10 + [_I] * 13 + [_P],
+    # aseq bseq lens_a lens_b table gap ckpt bp edge gprog, B NA NB k Cp row0
+    # band_rows table_len table_shared W warps_per_pair pairs_per_block
+    # blocks_per_pair, stream
+    "coati_wavefront_fill_band": [_P] * 10 + [_I] * 13 + [_P],
     # bp cM cD cI lens_a lens_b ops score, B R Cp k max_steps S warps, stream
     "coati_traceback_walk": [_P] * 8 + [_I] * 7 + [_P],
+    # bp adj lens_a lens_b score state ops, B R Cp k row0 max_steps S warps,
+    # stream
+    "coati_traceback_walk_band": [_P] * 7 + [_I] * 8 + [_P],
     # aseq bseq lens_a lens_b table gap ring_in corners_in ring_out corners_out
     # adj ring_scratch bp sync halo next stamps, B NA NB k d0 T route want_bp
     # blocks_per_pair band_width halo_slots table_len threads, stream

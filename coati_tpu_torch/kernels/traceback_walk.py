@@ -3,9 +3,11 @@
 Counterparts of coati_tpu/align/wavefront.py traceback_ops_impl (the walk
 over a whole backpointer stack, here in the fill kernel's row layout) and
 coati_tpu/align/longseq.py _walk_segment (the walk of long pairs, one
-segment at a time, diagonal layout). CPU tensors take the plain PyTorch
-versions (align/wavefront.py traceback_rows_plain, walk_segment_plain);
-CUDA tensors launch the kernels or raise.
+segment at a time: walk_segment over diagonals above k = 8, walk_band over
+the row bands of the fill's long path up to it). CPU tensors take the plain
+PyTorch versions (align/wavefront.py traceback_rows_plain,
+walk_segment_plain, walk_band_plain); CUDA tensors launch the kernels or
+raise.
 """
 
 from __future__ import annotations
@@ -14,12 +16,14 @@ import torch
 
 from coati_tpu_torch.align.wavefront import (
     traceback_rows_plain,
+    walk_band_plain,
     walk_segment_plain,
 )
 from coati_tpu_torch.kernels import _build
 
 LAUNCHES = 0  # kernel launches made by traceback_walk
 SEGMENT_LAUNCHES = 0  # kernel launches made by walk_segment
+BAND_LAUNCHES = 0  # kernel launches made by walk_band
 SMEM_BYTES = 232_448  # dynamic shared memory one H100 block may use
 # S, steps a window of the whole-stack walk serves, and warps (pairs) a block.
 # On an H100 at the B = 64 cell (sweep_shapes.py fill): S = 16 0.17-0.18 ms,
@@ -75,6 +79,19 @@ def segment_row_bytes(k: int, S: int) -> int:
     return -(-(2 * k * S + 16) // 16) * 16
 
 
+def _windows(k: int, S: int | None, warps: int) -> int:
+    """S of a walk over rows (default window_steps(k)), checked: warps
+    windows of it fit a block's shared memory and a window row fits
+    WINDOW_ROW_BYTES."""
+    S = window_steps(k) if S is None else S
+    if (S < 1 or not 1 <= warps <= 32 or warps * window_bytes(k, S) > SMEM_BYTES
+            or 2 * k * S + 31 > WINDOW_ROW_BYTES):
+        raise ValueError(f"{warps} warps of windows for S={S} at k={k}: over "
+                         f"{SMEM_BYTES} bytes of shared memory a block, or "
+                         f"window rows over {WINDOW_ROW_BYTES} bytes")
+    return S
+
+
 def _check(bp, corners, lens_a, lens_b):
     B = lens_a.shape[0]
     if bp.dtype != torch.uint8 or bp.dim() != 3 or bp.shape[0] != B:
@@ -113,12 +130,7 @@ def traceback_walk(bp, corners, lens_a, lens_b, *, k: int, max_steps: int,
     B, R, Cp = bp.shape
     if Cp % 16:
         raise ValueError(f"rows of the stack must be a multiple of 16 bytes, got {Cp}")
-    S = window_steps(k) if S is None else S
-    if (S < 1 or not 1 <= warps <= 32 or warps * window_bytes(k, S) > SMEM_BYTES
-            or 2 * k * S + 31 > WINDOW_ROW_BYTES):
-        raise ValueError(f"{warps} warps of windows for S={S} at k={k}: over "
-                         f"{SMEM_BYTES} bytes of shared memory a block, or "
-                         f"window rows over {WINDOW_ROW_BYTES} bytes")
+    S = _windows(k, S, warps)
     ops = torch.empty((max_steps, B), dtype=torch.int8, device=bp.device)
     score = torch.empty((B,), dtype=torch.float32, device=bp.device)
     lib = _build.load()
@@ -145,7 +157,7 @@ def _check_start(start, B, dev):
             raise ValueError(f"{name} must be contiguous int32 [{B}]")
     for name, t in (("adj", adj), ("lens_a", lens_a), ("lens_b", lens_b)):
         if t.device != dev:
-            raise ValueError(f"{name} is on {t.device}, bp_seg on {dev}")
+            raise ValueError(f"{name} is on {t.device}, the stack on {dev}")
 
 
 def walk_segment(bp_seg, d0: int, state, ops, *, k: int, start=None,
@@ -166,13 +178,7 @@ def walk_segment(bp_seg, d0: int, state, ops, *, k: int, start=None,
                          f"{tuple(bp_seg.shape)} {bp_seg.dtype}")
     B, T, C = bp_seg.shape
     dev = bp_seg.device
-    for name, t, dtype, shape in (("state", state, torch.int32, (4, B)),
-                                  ("ops", ops, torch.int8, (ops.shape[0], B))):
-        if t.dtype != dtype or tuple(t.shape) != shape or not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous {dtype} {shape}, got "
-                             f"{t.dtype} {tuple(t.shape)}")
-        if t.device != dev:
-            raise ValueError(f"{name} is on {t.device}, bp_seg on {dev}")
+    _check_state(state, ops, B, dev, "bp_seg")
     if start is not None:
         _check_start(start, B, dev)
     if dev.type == "cpu":
@@ -200,4 +206,58 @@ def walk_segment(bp_seg, d0: int, state, ops, *, k: int, start=None,
         )
     _build.check(rc, "walk_segment")
     SEGMENT_LAUNCHES += 1
+    return state, ops, score
+
+
+def _check_state(state, ops, B, dev, what):
+    for name, t, dtype, shape in (("state", state, torch.int32, (4, B)),
+                                  ("ops", ops, torch.int8, (ops.shape[0], B))):
+        if t.dtype != dtype or tuple(t.shape) != shape or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous {dtype} {shape}, got "
+                             f"{t.dtype} {tuple(t.shape)}")
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, {what} on {dev}")
+
+
+def walk_band(bp_band, row0: int, state, ops, *, k: int, start=None,
+              S: int | None = None, warps: int = WALK_WARPS):
+    """Advance every pair's walk through one band of rows, bp_band [B, H, Cp]
+    uint8 holding rows [row0, row0 + H) in row layout (the long path's pass
+    2, wavefront_fill.wavefront_fill_band), as walk_band_plain does: state [4,
+    B] int32 = each pair's (i, j, st, s) and ops [max_steps, B] int8 (filled
+    with -1 beforehand) are updated in place. The bands are supplied last to
+    first; a pair walks while its row is in the band. start, S and warps as
+    walk_segment's (S defaults to window_steps(k), the whole-stack walk's).
+    Returns (state, ops, score)."""
+    global BAND_LAUNCHES
+    if bp_band.dtype != torch.uint8 or bp_band.dim() != 3 or not bp_band.is_contiguous():
+        raise ValueError(f"bp_band must be contiguous [B, H, Cp] uint8, got "
+                         f"{tuple(bp_band.shape)} {bp_band.dtype}")
+    B, H, Cp = bp_band.shape
+    dev = bp_band.device
+    _check_state(state, ops, B, dev, "bp_band")
+    if start is not None:
+        _check_start(start, B, dev)
+    if dev.type == "cpu":
+        return walk_band_plain(bp_band, row0, state, ops, k=k, start=start)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    if Cp % 16 or row0 < 0:
+        raise ValueError(f"rows of the band must be a multiple of 16 bytes and "
+                         f"row0 >= 0, got {Cp} and {row0}")
+    S = _windows(k, S, warps)
+    score = None
+    first = (None, None, None, None)
+    if start is not None:
+        score = torch.empty((B,), dtype=torch.float32, device=dev)
+        first = tuple(t.data_ptr() for t in (*start, score))
+    lib = _build.load()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.coati_traceback_walk_band(
+            bp_band.data_ptr(), *first, state.data_ptr(), ops.data_ptr(),
+            B, H, Cp, k, row0, ops.shape[0], S, warps, stream,
+        )
+    _build.check(rc, "walk_band")
+    BAND_LAUNCHES += 1
     return state, ops, score

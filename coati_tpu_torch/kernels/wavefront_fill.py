@@ -9,6 +9,11 @@ the kernel or raise.
 
 The backpointer stack is in row layout, bp [B, NA + k, Cp] uint8 with cell
 (i, j) at [p, i, j] and Cp = row_stride(NB + k), on both devices.
+
+wavefront_fill_band is the long path's pass 2 (align/longseq.py): the same
+fill over one band of rows from the checkpoint of the rows above it
+(csrc/wavefront_fill_long.cu, entry point coati_wavefront_fill_band), with
+its plain version align/wavefront.py band_fill_plain.
 """
 
 from __future__ import annotations
@@ -17,10 +22,11 @@ import dataclasses
 
 import torch
 
-from coati_tpu_torch.align.wavefront import wavefront_plain
+from coati_tpu_torch.align.wavefront import band_fill_plain, wavefront_plain
 from coati_tpu_torch.kernels import _build
 
 LAUNCHES = 0  # kernel launches made by wavefront_fill
+BAND_LAUNCHES = 0  # kernel launches made by wavefront_fill_band
 
 SMEM_BYTES = 232_448  # dynamic shared memory one H100 block may use
 MAX_K = 8  # largest gap length the kernel is built for
@@ -36,6 +42,7 @@ SCORE_WIDTHS = {1: (4, 8, 16), 2: (4,), 3: (4,), 4: (4,),
 RING_ROWS = 64  # rows of a warp boundary's ring (kRingRows)
 ROW_QUANTUM = 16  # a row of the stack is a multiple of 16 bytes
 MULTI_BLOCK_SLOTS = 4096  # slots a pair above which it spreads over blocks
+BAND_WARPS = 4  # warps a block of a band's launch (band_shape)
 
 
 def row_stride(C: int) -> int:
@@ -162,14 +169,43 @@ def fill_shape(B: int, C: int, k: int, table_len: int = 183 * 15,
     return fill_launch(B, C, k, W, warps, pairs, blocks, table_len, widths=widths)
 
 
-def edge_buffers(launch: FillLaunch, NA: int, dev):
+def band_shape(B: int, C: int, k: int, table_len: int = 183 * 15,
+               sms: int = 132) -> FillLaunch:
+    """The launch of one band of rows of the long path's pass 2 for B pairs
+    of C slots at gap length k: BAND_WARPS warps a block, every stripe of a
+    pair its own warp over as many blocks as the SMs hold for the group, in
+    the narrowest strips of at least 8 columns (where built) whose stripes
+    that covers in one pass, else the widest (passes only where even those
+    do not fit). A band of a few thousand rows pays every stripe's skew
+    (some 48 rows a warp) once, so one pass beats the narrow strips and
+    passes fill_shape takes for a whole matrix. Rows that set this
+    (sweep_shapes.py band; PERF.md section 6), H100, k = 1, a middle band,
+    ms, W x warps x blocks (passes): the four 29-32 knt pairs, 8,384 rows,
+    11.52 at 8 x 4 x 32 (16 x 4 x 16: 12.90, 16 x 2 x 32: 13.05, 4 x 4 x
+    33 (2): 12.97, 4 x 8 x 32: 13.69, 8 x 8 x 16: 13.77); the 160,002 nt
+    pair, 6,710 rows, 24.73 at 16 x 4 x 79 (16 x 2 x 132 (2): 24.82, 16 x
+    8 x 40: 32.19, 8 x 4 x 132 (2): 29.37, 8 x 8 x 79: 34.85, 4 x 4 x 132
+    (3): 39.91)."""
+    room = max(1, sms // max(B, 1))
+    built = STRIP_WIDTHS[k]
+    fits = [w for w in built if w >= 8 and stripes(C, w) <= BAND_WARPS * room]
+    W = fits[0] if fits else built[-1]
+    n = stripes(C, W)
+    blocks = min(-(-n // BAND_WARPS), room)
+    warps = min(max_threads(k, W) // 32, BAND_WARPS, -(-n // blocks))
+    return fill_launch(B, C, k, W, warps, 1, blocks, table_len)
+
+
+def edge_buffers(launch: FillLaunch, NA: int, dev, rows: int | None = None):
     """(edge, gprog) of one launch for ancestors padded to NA: the edge
-    buffer [B, blocks, NA + k, 2k + 1] f32 and its release counters [B,
-    blocks] (zeros) when stripes leave a block, else (None, None)."""
+    buffer [B, blocks, rows, 2k + 1] f32 (rows NA + k, or a band's) and its
+    release counters [B, blocks] (zeros) when stripes leave a block, else
+    (None, None)."""
     if not launch.needs_edge:
         return None, None
     B, k = launch.B, launch.k
-    return (torch.empty((B, launch.blocks, NA + k, 2 * k + 1), dtype=torch.float32,
+    rows = NA + k if rows is None else rows
+    return (torch.empty((B, launch.blocks, rows, 2 * k + 1), dtype=torch.float32,
                         device=dev),
             torch.zeros((B, launch.blocks), dtype=torch.int32, device=dev))
 
@@ -278,3 +314,64 @@ def wavefront_fill(aseq, bseq, lens_a, lens_b, table, gap_consts, *, k: int,
     _build.check(rc, "wavefront_fill")
     LAUNCHES += 1
     return (corners[0], corners[1], corners[2]), bp
+
+
+def wavefront_fill_band(aseq, bseq, lens_a, lens_b, table, gap_consts, ckpt, *,
+                        k: int, row0: int, band_rows: int,
+                        launch: FillLaunch | None = None):
+    """The long path's pass 2: the Viterbi fill with backpointers over rows
+    [row0, row0 + band_rows) of each pair's matrix, from ckpt [B, k, 3, Cp]
+    f32, (M, D, I) of rows row0 - k .. row0 - 1 as wavefront_score_ckpt keeps
+    them (one band's slice; None for row0 = 0). Returns bp [B, band_rows,
+    Cp] uint8 in row layout, cell (i, j) at [p, i - row0, j], Cp =
+    row_stride(NB + k); on CUDA only the true cells of each pair's rows in
+    the band are defined, and a pair with no row in it launches no work.
+    k <= MAX_K. launch: the shape (fill_launch), by default band_shape's.
+    Preconditions as wavefront_fill's."""
+    global BAND_LAUNCHES
+    _check(aseq, bseq, lens_a, lens_b, table, gap_consts)
+    if k not in STRIP_WIDTHS or band_rows < k or row0 < 0:
+        raise ValueError(f"a band of {band_rows} rows at row {row0}, k={k}: the "
+                         f"kernel takes k <= {MAX_K} and at least k rows")
+    B, NA = aseq.shape
+    NB = bseq.shape[1]
+    C = NB + k
+    Cp = row_stride(C)
+    dev = aseq.device
+    if row0 > 0:
+        if ckpt is None:
+            raise ValueError("a band below row 0 starts from its checkpoint")
+        if (ckpt.dtype != torch.float32 or tuple(ckpt.shape) != (B, k, 3, Cp)
+                or not ckpt.is_contiguous() or ckpt.device != dev):
+            raise ValueError(f"ckpt must be contiguous f32 [{B}, {k}, 3, {Cp}] on "
+                             f"{dev}, got {ckpt.dtype} {tuple(ckpt.shape)} on {ckpt.device}")
+    if dev.type == "cpu":
+        return band_fill_plain(aseq, bseq, lens_a, lens_b, table, gap_consts,
+                               ckpt if row0 > 0 else None, k=k, row0=row0,
+                               band_rows=band_rows)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    if launch is None:
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        launch = band_shape(B, C, k, table.numel(), sms)
+    if (launch.B, launch.C, launch.k) != (B, C, k):
+        raise ValueError(f"a launch for B={launch.B} C={launch.C} k={launch.k}, "
+                         f"given B={B} C={C} k={k}")
+    bp = torch.empty((B, band_rows, Cp), dtype=torch.uint8, device=dev)
+    edge, gprog = edge_buffers(launch, NA, dev, rows=band_rows)
+    lib = _build.load()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.coati_wavefront_fill_band(
+            aseq.data_ptr(), bseq.data_ptr(), lens_a.data_ptr(),
+            lens_b.data_ptr(), table.data_ptr(), gap_consts.data_ptr(),
+            ckpt.data_ptr() if row0 > 0 else None, bp.data_ptr(),
+            None if edge is None else edge.data_ptr(),
+            None if gprog is None else gprog.data_ptr(),
+            B, NA, NB, k, Cp, row0, band_rows, table.numel(),
+            int(launch.table_shared), launch.W, launch.warps, launch.pairs,
+            launch.blocks, stream,
+        )
+    _build.check(rc, "wavefront_fill_band")
+    BAND_LAUNCHES += 1
+    return bp

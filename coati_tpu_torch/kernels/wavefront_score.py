@@ -8,13 +8,18 @@ want_bp=False: the corner scores of every pair with no backpointers and
 O(NA) state a block boundary. CPU tensors take the plain PyTorch version
 (score_plain, align/wavefront.py wavefront_plain in score mode); CUDA
 tensors launch a kernel or raise.
+
+wavefront_score_ckpt is the long path's pass 1 (align/longseq.py): the strip
+body without backpointers that also keeps the k rows above every band
+boundary (csrc/wavefront_fill_long.cu, entry point coati_wavefront_fill_ckpt),
+with its plain version ckpt_plain.
 """
 
 from __future__ import annotations
 
 import torch
 
-from coati_tpu_torch.align.wavefront import wavefront_plain
+from coati_tpu_torch.align.wavefront import LOWEST, wavefront_plain
 from coati_tpu_torch.kernels import _build
 from coati_tpu_torch.kernels.wavefront_fill import (
     MAX_K,
@@ -25,6 +30,7 @@ from coati_tpu_torch.kernels.wavefront_fill import (
     edge_buffers,
     fill_launch,
     fill_shape,
+    row_stride,
     stripes,
 )
 from coati_tpu_torch.kernels.wavefront_segment import (
@@ -35,6 +41,7 @@ from coati_tpu_torch.kernels.wavefront_segment import (
 )
 
 LAUNCHES = 0  # kernel launches made by wavefront_score
+CKPT_LAUNCHES = 0  # kernel launches made by wavefront_score_ckpt
 SPREAD_WARPS = 4  # warps a block of a pair spread over blocks
 
 
@@ -141,3 +148,91 @@ def wavefront_score(aseq, bseq, lens_a, lens_b, table, gap_consts, *, k: int,
     _build.check(rc, "wavefront_score")
     LAUNCHES += 1
     return adj
+
+
+def ckpt_cells(lens_a, lens_b, k: int, band_rows: int, n_ckpt: int, Cp: int):
+    """[n_ckpt, B, k, 3, Cp] mask of the checkpoint entries the kernel
+    defines: bands 1 .. n_ckpt, rows and columns of each pair's (la+k) x
+    (lb+k) matrix."""
+    b = torch.arange(1, n_ckpt + 1, device=lens_a.device)[:, None, None]
+    row = b * band_rows - k + torch.arange(k, device=lens_a.device)[None, None, :]
+    row_ok = row < (lens_a.long() + k)[None, :, None]  # [n, B, k]
+    col_ok = torch.arange(Cp, device=lens_a.device)[None, :] < (lens_b.long() + k)[:, None]
+    mask = row_ok[:, :, :, None, None] & col_ok[None, :, None, None, :]
+    return mask.expand(n_ckpt, lens_a.shape[0], k, 3, Cp)
+
+
+def ckpt_plain(aseq, bseq, lens_a, lens_b, table, gap_consts, *, k: int,
+               band_rows: int, n_ckpt: int):
+    """Plain version of wavefront_score_ckpt: (corners [3, B] f32, ckpt
+    [n_ckpt, B, k, 3, Cp] f32), wavefront_plain in score mode keeping the
+    checkpoint rows (entries the kernel leaves undefined hold LOWEST or the
+    padding's values)."""
+    B = aseq.shape[0]
+    Cp = row_stride(bseq.shape[1] + k)
+    R = aseq.shape[1] + k
+    # rows b x band_rows - k .. b x band_rows - 1 of bands b = 1 .. n_ckpt
+    # (band 0 starts at the top boundary), those the padded matrix has
+    rows = [r for b in range(1, n_ckpt + 1)
+            for r in range(b * band_rows - k, b * band_rows) if r < R]
+    adj, kept = wavefront_plain(aseq, bseq, lens_a, lens_b, table, gap_consts,
+                                k=k, mode="score", keep_rows=rows)
+    ckpt = torch.full((n_ckpt, B, k, 3, Cp), LOWEST, dtype=torch.float32,
+                      device=aseq.device)
+    C = kept.shape[2]
+    for n, r in enumerate(rows):
+        b, q = divmod(r + k, band_rows)
+        ckpt[b - 1, :, q, :, :C] = kept[:, n].permute(0, 2, 1)
+    return torch.stack(adj), ckpt
+
+
+def wavefront_score_ckpt(aseq, bseq, lens_a, lens_b, table, gap_consts, *,
+                         k: int, band_rows: int, n_ckpt: int,
+                         launch: FillLaunch | None = None):
+    """The long path's pass 1: score-only Viterbi over each pair's whole
+    matrix that also keeps (M, D, I) of the k rows above every band boundary
+    b x band_rows, b = 1 .. n_ckpt (band 0 starts at the top boundary).
+    Returns (corners [3, B] f32 terminal-adjusted, ckpt [n_ckpt, B, k, 3,
+    Cp] f32 with row b x band_rows - k + q at [b - 1, p, q], Cp =
+    row_stride(NB + k)); on CUDA only the entries of ckpt_cells are defined.
+    k <= MAX_K; band_rows >= k; n_ckpt >= 0. launch: a strip
+    launch (score_shape's by default, or wavefront_fill.fill_launch with
+    widths=SCORE_WIDTHS). Preconditions as wavefront_fill's."""
+    global CKPT_LAUNCHES
+    _check(aseq, bseq, lens_a, lens_b, table, gap_consts)
+    if k > MAX_K or band_rows < k or n_ckpt < 0:
+        raise ValueError(f"checkpoints at k={k} (the strip body takes k <= {MAX_K}) "
+                         f"every {band_rows} rows (at least k), {n_ckpt} of them")
+    dev = aseq.device
+    if dev.type == "cpu":
+        return ckpt_plain(aseq, bseq, lens_a, lens_b, table, gap_consts, k=k,
+                          band_rows=band_rows, n_ckpt=n_ckpt)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    B, NA = aseq.shape
+    NB = bseq.shape[1]
+    C = NB + k
+    Cp = row_stride(C)
+    if launch is None:
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        launch = score_shape(B, C, k, table.numel(), sms)
+    if (launch.B, launch.C, launch.k) != (B, C, k) or launch.W not in SCORE_WIDTHS[k]:
+        raise ValueError(f"a strip launch for B={launch.B} C={launch.C} "
+                         f"k={launch.k} W={launch.W}, given B={B} C={C} k={k} "
+                         f"(widths built: {SCORE_WIDTHS[k]})")
+    adj = torch.empty((3, B), dtype=torch.float32, device=dev)
+    ckpt = torch.empty((n_ckpt, B, k, 3, Cp), dtype=torch.float32, device=dev)
+    edge, gprog = edge_buffers(launch, NA, dev)
+    lib = _build.load()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.coati_wavefront_fill_ckpt(
+            aseq.data_ptr(), bseq.data_ptr(), lens_a.data_ptr(),
+            lens_b.data_ptr(), table.data_ptr(), gap_consts.data_ptr(),
+            adj.data_ptr(), ckpt.data_ptr(), ptr(edge), ptr(gprog), B, NA, NB,
+            k, Cp, band_rows, n_ckpt, table.numel(), int(launch.table_shared),
+            launch.W, launch.warps, launch.pairs, launch.blocks, stream,
+        )
+    _build.check(rc, "wavefront_score_ckpt")
+    CKPT_LAUNCHES += 1
+    return adj, ckpt

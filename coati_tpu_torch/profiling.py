@@ -178,13 +178,21 @@ WRAPPERS = {
     "wavefront_segment": (wavefront_segment, "wavefront_segment"),
     "wavefront_score": (wavefront_score, "wavefront_score"),
     "traceback_walk_segment": (traceback_walk, "walk_segment"),
+    "wavefront_score_ckpt": (wavefront_score, "wavefront_score_ckpt"),
+    "wavefront_fill_band": (wavefront_fill, "wavefront_fill_band"),
+    "traceback_walk_band": (traceback_walk, "walk_band"),
     "wavefront_forward": (wavefront_forward, "wavefront_forward"),
     "sample_walk": (sample_walk, "sample_walk"),
     "triplet_rows": (triplet_rows, "triplet_rows"),
     "triplet_walk": (triplet_walk, "triplet_walk"),
 }
-COUNTERS = {name: (mod, "SEGMENT_LAUNCHES" if name == "traceback_walk_segment"
-                   else "LAUNCHES") for name, (mod, _) in WRAPPERS.items()}
+# a module's counter is LAUNCHES unless it holds several wrappers
+_COUNTER_ATTR = {"traceback_walk_segment": "SEGMENT_LAUNCHES",
+                 "wavefront_score_ckpt": "CKPT_LAUNCHES",
+                 "wavefront_fill_band": "BAND_LAUNCHES",
+                 "traceback_walk_band": "BAND_LAUNCHES"}
+COUNTERS = {name: (mod, _COUNTER_ATTR.get(name, "LAUNCHES"))
+            for name, (mod, _) in WRAPPERS.items()}
 
 
 def launch_counts() -> dict[str, int]:

@@ -5,10 +5,11 @@ which writes LONGPAIR.json).
 Aligns the JAX tool's two seeded pairs, 10,667 and 53,334 codons (32,001 and
 160,002 nt: the reference's largest benchmark and sampledata scales),
 through align/engine.py viterbi_align_batch, whose default byte budget
-sends both down the segmented two-pass path of align/longseq.py: one cold
-pass (the first use of each shape) and one warm pass, timed whole, strings
-included. Records LONGPAIR.json's fields, the cold wall, and the peak of
-torch.cuda.max_memory_allocated.
+sends the 160,002 nt pair down the two-pass long path of align/longseq.py
+(bands of rows) and lets the 32,001 nt pair's stack of rows (1.03 GB) take
+the fill: one cold pass (the first use of each shape) and one warm pass,
+timed whole, strings included. Records LONGPAIR.json's fields, each pair's
+route, the cold wall, and the peak of torch.cuda.max_memory_allocated.
 
     python -m coati_tpu_torch.tools.run_longpair [--device cuda|cpu] [--quick] [-o PATH]
 
@@ -36,6 +37,7 @@ def run(device: str = "cuda", sizes=SIZES) -> dict:
     import torch
 
     from coati_tpu_torch.align.engine import viterbi_align_batch
+    from coati_tpu_torch.align.longseq import is_long_pair
     from coati_tpu_torch.params import alignment_params
     from coati_tpu_torch.provenance import kernel_hash
     from coati_tpu_torch.tools.common import device_and_label, wall_s
@@ -70,6 +72,7 @@ def run(device: str = "cuda", sizes=SIZES) -> dict:
         runs.append({
             "nt": len(ea),
             "nt_des": len(eb),
+            "route": "long" if is_long_pair(len(ea), len(eb), int(gap.len)) else "fill",
             "cells": cells,
             "cold_seconds": round(cold, 3),
             "wall_seconds": round(dt, 3),
@@ -84,9 +87,12 @@ def run(device: str = "cuda", sizes=SIZES) -> dict:
         print(f"#   cold {cold:.2f} s, warm {dt:.2f} s, {cells / dt / 1e9:.2f} Gcells/s, "
               f"peak RSS {peak_kb / 1e6:.2f} GB", file=sys.stderr)
     return {
-        "note": ("segmented O(n)-memory two-pass traceback (align/longseq.py) "
-                 "through viterbi_align_batch, strings included; wall of the "
-                 "warm pass"),
+        "note": ("viterbi_align_batch at its default byte budget, strings "
+                 "included; wall of the warm pass. route 'long': the "
+                 "O(n)-memory two-pass traceback of align/longseq.py (a "
+                 "checkpointing score pass, then bands of rows refilled with "
+                 "backpointers and walked); 'fill': the whole stack of rows "
+                 "fits the budget"),
         "generated": time.strftime("%Y-%m-%d %H:%M:%S"),
         "runs": runs,
         "kernel_hash": kernel_hash(REPO),

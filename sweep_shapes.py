@@ -4,7 +4,7 @@ at several launch shapes, on its two several-blocks routes in turns, and
 hold every shape to the one-block result.
 
     python3 sweep_shapes.py [--root DIR] [segment] [forward] [triplet] [fill]
-                            [score] [segwalk] [samplewalk] [walkcells]
+                            [score] [segwalk] [samplewalk] [walkcells] [band]
                                  # from the repository root; needs one card;
                                  # no argument: every table but walkcells
 
@@ -74,6 +74,20 @@ walk's redesign, so `--root DIR` times an unpacked older tree of the
 repository (its chip_smoke.py and coati_tpu_torch imported from DIR), in
 the same session as this one.
 
+The band table times the long path's passes on the fill's strips
+(csrc/wavefront_fill_long.cu) at the two long cases of chip_smoke.py's long
+phase, the four 29-32 knt pairs as one group (driven there through the
+long path by long_slots) and the 160,002 nt pair: pass 1 (the score-only
+sweep that keeps the checkpoint rows) beside the score kernel alone, in
+turns; then the middle band of rows with backpointers from its checkpoint
+at strips of W columns x warps a block, as many blocks as the stripes need
+(passes beyond the SMs the group leaves), each held bit-equal to
+band_shape's launch on the band's true cells; the band walk at S steps a
+window x warps a block on that band, from the state the real walk enters
+it with, each equal in state and ops to the default; last the whole path
+(align_long_group) timed by kernel. CUDA events, mean of 2 launches after
+a warm-up. Its rows set kernels/wavefront_fill.py band_shape.
+
 The samplewalk table times the sample walk (csrc/sample_walk.cu) at S steps
 a window x warps a block and at one thread a sample, on the sample verb's
 own matrices and uniforms at 9,999 nt x 200 samples, each held op for op
@@ -101,6 +115,7 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from chip_smoke import (  # noqa: E402
+    KernelTimer,
     LENGTH_MIX,
     LONG_MIX,
     LONGPAIR_NT,
@@ -166,6 +181,11 @@ SCORE_SPREAD = ((4, 1), (4, 2), (4, 4), (4, 8), (8, 2), (8, 4), (8, 5), (16, 2),
                 (16, 3), (16, 4))
 SEGWALK_S = (16, 32, 64)
 SEGWALK_WARPS = (1, 2)
+# band table: (W, warps a block) of a band's launch beside band_shape's, and
+# the band walk's (S, warps)
+BAND_SHAPES = ((4, 1), (4, 2), (4, 4), (4, 8), (8, 1), (8, 2), (8, 4), (8, 8),
+               (16, 1), (16, 2), (16, 4), (16, 8))
+BAND_WALKS = ((16, 1), (32, 1), (32, 2), (48, 2), (64, 2))
 
 
 def elapsed_ms(fn, reps: int = 2) -> float:
@@ -478,7 +498,8 @@ def samplewalk_table(dev, card):
 
 
 def main(argv=None) -> int:
-    names = {"segment", "forward", "triplet", "fill", "score", "segwalk", "samplewalk"}
+    names = {"segment", "forward", "triplet", "fill", "score", "segwalk", "samplewalk",
+             "band"}
     tables = set(sys.argv[1:] if argv is None else argv) or names
     if tables - names - {"walkcells"}:
         raise SystemExit("sweep_shapes: tables are " + ", ".join(sorted(names | {"walkcells"})))
@@ -490,6 +511,8 @@ def main(argv=None) -> int:
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip().splitlines()[0].strip()
     print(card, flush=True)
+    if "band" in tables:
+        band_table(dev, card)
     if "score" in tables:
         score_table(dev, card)
     if "segwalk" in tables:
@@ -890,6 +913,120 @@ def segwalk_table(dev, card):
                       f"{ms:.4f} ms = {ms * 1e6 / longest:.0f} ns a step of the "
                       f"longest walk's {longest}", flush=True)
         del bp
+
+
+def band_table(dev, card):
+    """The long path's passes on strips at the two long cases (see the
+    module's docstring)."""
+    aln = alignment_params()
+    p = params_from_numpy(aln.subst_matrix, aln.gap, dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    k = 1
+    for name, enc_as, enc_bs in long_cases():
+        aseq, bseq, la, lb = longseq._pad_group(enc_as, enc_bs)
+        a, b, tla, tlb = (torch.from_numpy(x).to(dev) for x in (aseq, bseq, la, lb))
+        args = (a, b, tla, tlb, p.table, p.gap_consts)
+        B, NA = aseq.shape
+        C = bseq.shape[1] + k
+        Cp = wavefront_fill.row_stride(C)
+        H = longseq.band_rows_for(B, Cp, k)
+        top = (int(la.max()) + k - 1) // H
+        mid = top // 2
+        rule = wavefront_score.score_shape(B, C, k, p.table.numel(), sms)
+
+        def runs(turn):
+            if turn == "ckpt":
+                return wavefront_score.wavefront_score_ckpt(*args, k=k, band_rows=H,
+                                                            n_ckpt=top)
+            return wavefront_score.wavefront_score(*args, k=k)
+
+        adj, ckpt = runs("ckpt")
+        if not torch.equal(adj, runs("score")):
+            raise AssertionError(f"band {name}: pass 1's corners differ from the score kernel's")
+        times = in_turns(("ckpt", "score"), runs)
+        print(f"[{card}] band, {name}: B={B} C={C} Cp={Cp}, {top + 1} bands of {H} rows; "
+              f"pass 1 at score_shape W={rule.W} x {rule.warps} warps x {rule.blocks} "
+              f"blocks {fmt(times['ckpt'])} ms, the score kernel alone "
+              f"{fmt(times['score'])} ms; corners bit-equal", flush=True)
+
+        # the walk's state entering the middle band: the real walk down to it
+        state = torch.empty((4, B), dtype=torch.int32, device=dev)
+        ops = torch.full((NA + bseq.shape[1], B), -1, dtype=torch.int8, device=dev)
+        for band in range(top, mid, -1):
+            bp = wavefront_fill.wavefront_fill_band(*args, ckpt[band - 1] if band else None,
+                                                    k=k, row0=band * H, band_rows=H)
+            traceback_walk.walk_band(bp, band * H, state, ops, k=k,
+                                     start=(adj, tla, tlb) if band == top else None)
+        del bp
+        entry = state.clone()
+        r0 = mid * H
+        ck = ckpt[mid - 1] if mid else None
+        default = wavefront_fill.band_shape(B, C, k, p.table.numel(), sms)
+        want = wavefront_fill.wavefront_fill_band(*args, ck, k=k, row0=r0, band_rows=H)
+        i = (r0 + torch.arange(H, device=dev))[None, :, None]
+        j = torch.arange(Cp, device=dev)[None, None, :]
+        mask = ((i >= k) & (i < (tla.long() + k)[:, None, None]) & (j >= k)
+                & (j < (tlb.long() + k)[:, None, None]))
+        want_true = want[mask]
+        del want
+        for W, warps in BAND_SHAPES:
+            n = wavefront_fill.stripes(C, W)
+            blocks = max(1, min(-(-n // warps), sms // B))
+            try:
+                launch = wavefront_fill.fill_launch(B, C, k, W, warps, 1, blocks,
+                                                    table_len=p.table.numel())
+            except ValueError as e:
+                print(f"[{card}]   W={W} x {warps} warps: not taken ({e})", flush=True)
+                continue
+
+            def run(launch=launch):
+                return wavefront_fill.wavefront_fill_band(*args, ck, k=k, row0=r0,
+                                                          band_rows=H, launch=launch)
+
+            if not torch.equal(run()[mask], want_true):
+                raise AssertionError(f"band {name} W={W} x {warps}: differs from "
+                                     f"band_shape's launch")
+            mark = " (band_shape's)" if launch == default else ""
+            print(f"[{card}]   band {mid} (rows {r0}-{r0 + H - 1}), W={W} x {warps} "
+                  f"warps x {blocks} blocks, {launch.passes} passes{mark}: bit-equal; "
+                  f"{elapsed_ms(run):.2f} ms", flush=True)
+
+        bp = wavefront_fill.wavefront_fill_band(*args, ck, k=k, row0=r0, band_rows=H)
+
+        def walk(S=None, warps=traceback_walk.WALK_WARPS):
+            st = entry.clone()
+            o = ops.clone()
+            traceback_walk.walk_band(bp, r0, st, o, k=k, S=S, warps=warps)
+            return st, o
+
+        want_st, want_ops = walk()
+        steps = int((want_st[3] - entry[3]).max())
+        for S, warps in BAND_WALKS:
+            got = walk(S, warps)
+            if not (torch.equal(got[0], want_st) and torch.equal(got[1], want_ops)):
+                raise AssertionError(f"band walk {name} S={S} x {warps}: differs")
+            mark = (" (the default)" if (S, warps) == (
+                traceback_walk.window_steps(k), traceback_walk.WALK_WARPS) else "")
+            print(f"[{card}]   band walk S={S} x {warps} warps a block{mark}: equal; "
+                  f"{elapsed_ms(lambda: walk(S, warps), 5):.4f} ms, {steps} steps the "
+                  f"longest walk in the band", flush=True)
+        del bp, ckpt
+
+        def whole():
+            return longseq.align_long_group(*args, k=k, host_lens=(la, lb))
+
+        whole()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with KernelTimer(dev) as timer:
+            whole()
+        wall = time.perf_counter() - t0
+        parts = {n: (timer.count(n), timer.seconds(n) * 1e3)
+                 for n in ("wavefront_score_ckpt", "wavefront_fill_band",
+                           "traceback_walk_band")}
+        print(f"[{card}] band, {name}: align_long_group {wall * 1e3:.1f} ms wall; "
+              + "; ".join(f"{n} {ms:.1f} ms over {c}" for n, (c, ms) in parts.items()),
+              flush=True)
 
 
 if __name__ == "__main__":

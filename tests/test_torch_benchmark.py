@@ -17,7 +17,7 @@ Two module constants are lowered so that the tiny cells keep their real
 routes (both are read at the call): driver.NATIVE_SAMPLE_CELLS, so that
 `sample` takes the Forward + walk route and not the native host sampler, and
 longseq.BP_BUDGET_BYTES, so that the largest alignpair pair takes the
-segmented long path while the others take the fill.
+two-pass long path while the others take the fill.
 """
 
 from __future__ import annotations
@@ -47,8 +47,9 @@ TINY = {
     "batch-tri-mg-exons": {"traffic": {"pairs": 4, "length_mix": [[30, 1.0]]}},
     "batch-mix40k-4card": {"traffic": {"pairs": 8, "length_mix": [[24, 0.5], [36, 0.5]]}},
 }
-# a bp stack of the 72 nt pair passes it, one of the 33 nt pair does not
-BP_BUDGET = 6000
+# a bp stack of the 72 nt pair passes it (5,840 bytes of rows, two bands),
+# one of the 33 nt pair does not
+BP_BUDGET = 4000
 
 
 @pytest.fixture

@@ -305,15 +305,30 @@ def test_segment_walk_matches_xla_walk_segment(mg94_table, k, T):
     assert state[0].tolist() == [k - 1] * B and state[1].tolist() == [k - 1] * B
 
 
-@pytest.mark.parametrize("k,sizes,seg", [(1, (60,), 64), (1, (50, 60, 40), 77),
-                                          (3, (60,), 100), (3, (50, 60, 40), 64)])
-def test_long_batch_matches_xla_long_path_and_full_bp(mg94_table, k, sizes, seg):
+@pytest.mark.parametrize("k,sizes,seg,band", [
+    (1, (60,), 64, 40), (1, (50, 60, 40), 77, 7), (1, (20,), 64, 1),
+    (1, (50, 60, 40), 77, None), (3, (60,), 100, 21), (3, (50, 60, 40), 64, 6),
+    (3, (20, 16), 64, 3), (9, (30,), 64, None), (9, (24, 30), 77, None)])
+def test_long_batch_matches_xla_long_path_and_full_bp(mg94_table, monkeypatch,
+                                                      k, sizes, seg, band):
+    """The port's long path against the reference's (XLA:CPU, in segments
+    of `seg` diagonals) and against the full-bp path: up to MAX_K in bands
+    of `band` rows (a budget of the group's band of that height; None: the
+    default budget, one band here), above it (k = 9) in segments of
+    diagonals, the route that stays there."""
+    from coati_tpu_torch.kernels.wavefront_fill import row_stride
+
     enc_as, enc_bs, astrs, bstrs = _pairs(50 + k + len(sizes), sizes, k)
     gap = GapParams(len=k)
+    if band is not None:
+        Cp = row_stride(max(len(b) for b in enc_bs) + k)
+        monkeypatch.setattr(torch_longseq, "BP_BUDGET_BYTES", len(sizes) * Cp * band)
+        assert torch_longseq.band_rows_for(len(sizes), Cp, k) == band // k * k
     want = jax_longseq._viterbi_align_long_xla(
         enc_as, enc_bs, astrs, bstrs, mg94_table, gap, seg_diagonals=seg, quantum=64)
     got = torch_longseq.viterbi_align_long_batch(
-        enc_as, enc_bs, astrs, bstrs, mg94_table, gap, seg_diagonals=seg, device="cpu")
+        enc_as, enc_bs, astrs, bstrs, mg94_table, gap, seg_diagonals=seg,
+        device="cpu")
     _assert_same(want, got)
     full = torch_engine.viterbi_align_batch(enc_as, enc_bs, astrs, bstrs,
                                             mg94_table, gap, device="cpu")
@@ -326,9 +341,54 @@ def test_long_batch_matches_xla_long_path_and_full_bp(mg94_table, k, sizes, seg)
     _assert_same([one], got[:1])
 
 
-def test_engine_routes_long_pairs(mg94_table):
+@pytest.mark.parametrize("seed,sizes,unrelated", [
+    (61, (70, 90, 40), False), (62, (50,), False), (63, (30, 45, 12), True)])
+def test_path_score_sums_the_long_paths_own_path(mg94_table, monkeypatch, seed,
+                                                 sizes, unrelated):
+    """chip_smoke.path_score, which holds the 160,002 nt alignment on the
+    card to its score: summed along each pair's own path the way the fill
+    sums it, the long path's alignments (in bands of a few rows, k = 1) give
+    their scores bit for bit, which are the JAX long path's; unrelated pairs
+    start and end with gap runs down the matrix's margins. A path cut short
+    is refused."""
+    from chip_smoke import path_score
+    from coati_tpu_torch.kernels.wavefront_fill import row_stride
+
+    enc_as, enc_bs, astrs, bstrs = _pairs(seed, sizes, 1)
+    if unrelated:
+        rng = random.Random(seed)
+        bstrs = ["".join(rng.choice("ACGT") for _ in range(rng.randint(5, 4 * n)))
+                 for n in sizes]
+        enc = [encode_marginal(a, b) for a, b in zip(astrs, bstrs)]
+        enc_as, enc_bs = [e[0] for e in enc], [e[1] for e in enc]
+    gap = GapParams()
+    Cp = row_stride(max(len(b) for b in enc_bs) + 1)
+    monkeypatch.setattr(torch_longseq, "BP_BUDGET_BYTES", len(sizes) * Cp * 17)
+    got = torch_longseq.viterbi_align_long_batch(enc_as, enc_bs, astrs, bstrs,
+                                                 mg94_table, gap, device="cpu")
+    want = jax_longseq._viterbi_align_long_xla(enc_as, enc_bs, astrs, bstrs,
+                                               mg94_table, gap, seg_diagonals=64,
+                                               quantum=64)
+    _assert_same(want, got)
+    gc = gap_consts_array(gap)
+    for ea, eb, r in zip(enc_as, enc_bs, got):
+        assert path_score(ea, eb, r.seq0, r.seq1, mg94_table, gc) == np.float32(r.score)
+    if unrelated:
+        assert any(r.seq0.startswith("-") or r.seq1.startswith("-") for r in got)
+        assert any(r.seq0.endswith("-") or r.seq1.endswith("-") for r in got)
+    with pytest.raises(AssertionError, match="corner"):
+        path_score(enc_as[0], enc_bs[0], got[0].seq0[:-1], got[0].seq1[:-1],
+                   mg94_table, gc)
+
+
+def test_engine_routes_long_pairs(mg94_table, monkeypatch):
     """A mixed batch with long_slots=400: the routed result equals the
-    unrouted one and the JAX engine's, in input order."""
+    unrouted one and the JAX engine's, in input order. The three long pairs
+    go as one group through the rows path: one checkpointing pass, then a
+    band fill and a band walk a band (a budget lowered to cut them into
+    bands), and never the sweep."""
+    from coati_tpu_torch.kernels import wavefront_fill as fill_mod
+
     enc_as, enc_bs, astrs, bstrs = _pairs(7, (150, 20, 140, 35, 170), 1)
     gap = GapParams()
     k = 1
@@ -337,21 +397,31 @@ def test_engine_routes_long_pairs(mg94_table):
     assert len(routed_idx) == 3
     assert not any(torch_longseq.is_long_pair(len(a), len(b), k)
                    for a, b in zip(enc_as, enc_bs))
-    seg_calls = []
-    real = seg_mod.wavefront_segment
+    NA = max(len(enc_as[i]) for i in routed_idx)
+    Cp = fill_mod.row_stride(max(len(enc_bs[i]) for i in routed_idx) + k)
+    monkeypatch.setattr(torch_longseq, "BP_BUDGET_BYTES", 3 * Cp * 200)
+    H = torch_longseq.band_rows_for(3, Cp, k)
+    assert H == 200
+    calls = {"ckpt": [], "band": [], "walk": [], "segment": []}
 
-    def counting(*args, **kw):
-        seg_calls.append(args[0].shape[0])
-        return real(*args, **kw)
+    def spy(name, fn):
+        def counting(*args, **kw):
+            calls[name].append(args[0].shape[0])
+            return fn(*args, **kw)
+        return counting
 
-    seg_mod.wavefront_segment = counting
-    try:
-        routed = torch_engine.viterbi_align_batch(
-            enc_as, enc_bs, astrs, bstrs, mg94_table, gap, quantum=64,
-            long_slots=400, device="cpu")
-    finally:
-        seg_mod.wavefront_segment = real
-    assert seg_calls and set(seg_calls) == {3}  # one group of the three
+    for name, mod, attr in (("ckpt", score_mod, "wavefront_score_ckpt"),
+                            ("band", fill_mod, "wavefront_fill_band"),
+                            ("walk", walk_mod, "walk_band"),
+                            ("segment", seg_mod, "wavefront_segment")):
+        monkeypatch.setattr(mod, attr, spy(name, getattr(mod, attr)))
+    routed = torch_engine.viterbi_align_batch(
+        enc_as, enc_bs, astrs, bstrs, mg94_table, gap, quantum=64,
+        long_slots=400, device="cpu")
+    n_bands = -(-(NA + k) // H)
+    assert n_bands >= 2
+    assert calls == {"ckpt": [3], "band": [3] * n_bands, "walk": [3] * n_bands,
+                     "segment": []}  # one group of the three
     plain = torch_engine.viterbi_align_batch(
         enc_as, enc_bs, astrs, bstrs, mg94_table, gap, quantum=64, device="cpu")
     _assert_same(plain, routed)
@@ -361,27 +431,47 @@ def test_engine_routes_long_pairs(mg94_table):
 
 
 def test_thresholds_come_from_bytes():
-    """A pair is long when its backpointer stack passes the budget; a
-    group's segment fits the budget; the group width keeps the checkpoints
-    within theirs."""
+    """A pair is long when its backpointer stack, in the layout the port
+    stores (the fill's rows up to MAX_K, the sweep's diagonals above),
+    passes the budget; a group's band (segment) fits the budget; the group
+    width keeps the checkpoints within theirs."""
+    from coati_tpu_torch.kernels.wavefront_fill import MAX_K, row_stride
+
     budget = torch_longseq.BP_BUDGET_BYTES
-    assert torch_longseq.bp_bytes(32000, 32000, 1) == 64001 * 32001
+    assert torch_longseq.bp_bytes(32000, 32000, 1) == 32001 * 32016
+    assert torch_longseq.bp_bytes(32000, 32000, 9) == 64017 * 32009
     assert not torch_longseq.is_long_pair(1500, 1500, 1)
     assert not torch_longseq.is_long_pair(16000, 16000, 1)
-    assert torch_longseq.is_long_pair(29397, 29397, 1)
+    assert not torch_longseq.is_long_pair(29397, 29397, 1)  # 0.86 GB of rows
+    assert not torch_longseq.is_long_pair(32001, 32001, 1)
+    assert torch_longseq.is_long_pair(33000, 33000, 1)
+    assert torch_longseq.is_long_pair(29397, 29397, MAX_K + 1)  # diagonals
     assert torch_longseq.is_long_pair(160002, 160002, 1)
     assert torch_longseq.is_long_pair(30, 500, 1, long_slots=400)
     assert not torch_longseq.is_long_pair(29397, 29397, 1, long_slots=10**9)
+    for B, nb, k in ((1, 160002, 1), (4, 33000, 1), (8, 400, 3), (2, 50000, 8)):
+        Cp = row_stride(nb + k)
+        H = torch_longseq.band_rows_for(B, Cp, k)
+        assert H % k == 0 and B * H * Cp <= budget < B * (H + k) * Cp
+    assert torch_longseq.band_rows_for(1, 160016, 1) == 6710
     for B, C in ((1, 160003), (4, 32001), (8, 401)):
         T = torch_longseq.seg_diagonals_for(B, C)
         assert B * T * C <= budget < B * (T + 1) * C
-    for nb in (400, 32000, 160002):
+    for nb in (400, 33000, 160002):
         w = torch_longseq.long_batch_width(nb, 1)
         assert 1 <= w <= torch_longseq.LONG_GROUP_MAX
         C = nb + 1
-        n_seg = -(-2 * C // torch_longseq.seg_diagonals_for(w, C))
-        assert n_seg * w * (2 * 3 * C + 3) * 4 <= torch_longseq.LONG_CKPT_BYTES
-    assert torch_longseq.long_batch_width(160002, 1) < torch_longseq.long_batch_width(32000, 1)
+        Cp = row_stride(C)
+        # a checkpoint a band below the first
+        n_ckpt = -(-C // torch_longseq.band_rows_for(w, Cp, 1)) - 1
+        assert n_ckpt * w * 3 * Cp * 4 <= torch_longseq.LONG_CKPT_BYTES
+        if w < torch_longseq.LONG_GROUP_MAX:
+            n_ckpt = -(-C // torch_longseq.band_rows_for(w + 1, Cp, 1)) - 1
+            assert n_ckpt * (w + 1) * 3 * Cp * 4 > torch_longseq.LONG_CKPT_BYTES
+    assert torch_longseq.long_batch_width(160002, 1) < torch_longseq.long_batch_width(33000, 1)
+    w9 = torch_longseq.long_batch_width(32000, 9)
+    n_seg = -(-2 * 32009 // torch_longseq.seg_diagonals_for(w9, 32009))
+    assert n_seg * w9 * (9 * 3 * 32009 + 3) * 4 <= torch_longseq.LONG_CKPT_BYTES
     groups = torch_engine._long_groups(
         [0, 1, 2, 3], [[0] * 1000, [0] * 300, [0] * 990, [0] * 650],
         [[0] * 1000, [0] * 300, [0] * 990, [0] * 650], 1)
